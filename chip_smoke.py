@@ -3,27 +3,35 @@
 
     python3 chip_smoke.py
 
-Drives the flagship deploy path (audio + RGB encoders, unet_mask head with
-32 tracks, 224x448 frames, random weights from a seed) through the port's
-own entry points, and fails (non-zero exit) on the first phase that goes
-wrong:
+Drives the flagship model (audio + RGB encoders, unet_mask head with 32
+tracks, 224x448 frames, random weights from a seed) through the port's own
+entry points, deploy and training, and fails (non-zero exit) on the first
+phase that goes wrong:
 
   1. preconditions: a CUDA card, its name and power limit, torch/CUDA/nvcc;
-  2. build: the fused masked comb-ISTFT kernel (K1) from the checkout's
-     sources, with nvcc's register/spill report;
-  3. kernel: K1 against its plain PyTorch version on the card at the
-     flagship shapes (f32 and bf16 masks) and at a ragged shape, with
-     median times of both (CUDA events);
-  4. slice: MonoToAmbix.deploy over 2 s of a 4 s clip at batch 16 on the
+  2. build: the kernels (K1, the fused masked comb-ISTFT, and K2, its fused
+     backward) from the checkout's sources, one nvcc per source started
+     together, with nvcc's register/spill report;
+  3. kernels: K1 and K2 against their plain PyTorch versions on the card
+     at the flagship shapes (f32 and bf16 masks) and at a ragged shape,
+     with median times of both (CUDA events) and each one's bound;
+  4. deploy: MonoToAmbix.deploy over 2 s of a 4 s clip at batch 16 on the
      card (shape, finiteness, W passthrough bit for bit, K1 launched), and
      the same engine on the CPU over 0.5 s against the card;
-  5. numbers: device-forward realtime factors at batch 32 and 128 and the
-     deploy realtime factor.
+  5. deploy numbers: device-forward realtime factors at batch 32 and 128,
+     and a profile of the batch-128 forward by kernel family;
+  6. train: cli.train for 6 steps at batch 32 over a packed two-clip
+     dataset (finite losses, K1 and K2 launched on every step, params
+     moved), then MonoToAmbix deploys the trained model on the card;
+  7. train card vs CPU: one reduced train step on both, loss and gradient;
+  8. train numbers: train-step time and samples/s at batch 32 and 128, and
+     a profile of one step at each by kernel family (torch.profiler).
 
-The second-to-last line is a JSON object describing the kernels; the last
-is {"ok": true, "device": {...}}. Without a CUDA card the script exits
-non-zero and prints no result. Scratch files go to .chip_smoke/ in the
-checkout and are removed at the end.
+The kernel counts are set to 0 just before the deploy run and the train
+run and read just after each. The second-to-last line is a JSON object
+describing the kernels; the last is {"ok": true, "device": {...}}. Without
+a CUDA card the script exits non-zero and prints no result. Scratch files
+go to .chip_smoke/ in the checkout and are removed at the end.
 """
 
 from __future__ import annotations
@@ -50,7 +58,15 @@ FORWARD_BATCHES = (32, 128)
 CLIP_SECONDS = 4
 DEPLOY_START, DEPLOY_SECONDS, DEPLOY_BATCH = 0.5, 2.0, 16
 CPU_SECONDS = 0.5
+TRAIN_BATCHES = (32, 128)
+TRAIN_STEPS = 6
 K1_REPLACES = "spatialaudiogen_tpu/ops/pallas_kernels.py:47"
+K2_REPLACES = "spatialaudiogen_tpu/ops/pallas_kernels.py:141"
+# H100 SXM published peaks (dense): float32 outside the tensor cores, and
+# device-memory bandwidth. The bound is the larger of flops/peak and
+# bytes/bandwidth.
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -77,6 +93,24 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it)."""
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def istft_work(re, mask) -> tuple[float, float, float]:
+    """(flops, input bytes besides the mask, mask bytes) of one K1 or K2
+    call: the GEMM over (track, frame) rows of the used frames, depth F
+    against [C | S], and re, im and both bases read once."""
+    b, n_in, t, f = re.shape
+    t_use = (t // 4) * 4
+    rows = b * n_in * mask.shape[2] * t_use
+    flops = 2.0 * rows * (2 * f) * f
+    spectra = 2 * re.numel() * 4 + 2 * f * f * 4
+    return flops, spectra, mask.numel() * mask.element_size()
 
 
 # ---------------------------------------------------------------------------
@@ -153,12 +187,63 @@ def kernel_phase(card: str) -> dict:
             ok = bool(torch.allclose(got, want, atol=atol, rtol=rtol))
             ms = time_ms(lambda: k1.masked_istft(re, im, mask))
             plain_ms = time_ms(lambda: k1.masked_istft_plain(re, im, mask))
+            flops, spectra, mask_bytes = istft_work(re, mask)
+            bound_ms, bound_by = bound(flops, spectra + mask_bytes + got.numel() * 4)
             log(f"K1 {name} {shape}: max|kernel - plain| {err:.3e} "
                 f"(atol {atol:g}, rtol {rtol:g}) -> {'ok' if ok else 'FAIL'}; "
-                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms [{card}]")
+                f"kernel {ms:.3f} ms, plain (cuBLAS) {plain_ms:.3f} ms, bound "
+                f"{bound_ms:.3f} ms by {bound_by} [{card}]")
             if not ok:
                 raise AssertionError(f"K1 {name} disagrees with its plain version")
-            result[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            result[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by}
+    return result
+
+
+def bwd_kernel_phase(card: str) -> dict:
+    """K2 against masked_istft_bwd_plain at the flagship shapes (batch 16)
+    and a ragged shape; tolerances of tests/test_pallas.py:142-159 (f32)
+    and :93-117 (bf16 mask)."""
+    from spatialaudiogen_tpu_torch.ops import masked_istft as k
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    cases = [  # name, (B, n_in, TR, T, F), mask dtype, atol, rtol
+        ("flagship f32", (16, 1, 32, 28, 1024), torch.float32, 5e-4, 1e-4),
+        ("flagship bf16 mask", (16, 1, 32, 28, 1024), torch.bfloat16, 5e-2, 5e-2),
+        ("ragged f32", (3, 1, 5, 30, 1024), torch.float32, 5e-4, 1e-4),
+    ]
+    result = {}
+    with torch.no_grad():
+        for name, shape, dtype, atol, rtol in cases:
+            re, im, mask = k1_inputs(gen, *shape, dtype)
+            b, n_in, tracks, t, f = shape
+            out_len = (t // 4) * f - 3 * f // 4
+            g = torch.randn((b, n_in, tracks, out_len), generator=gen, device=DEVICE)
+            got = k.masked_istft_bwd(re, im, mask, g)
+            want = k.masked_istft_bwd_plain(re, im, mask, g)
+            torch.cuda.synchronize()
+            err, ok = 0.0, True
+            for part, a, w in zip(("d_re", "d_im", "d_mask"), got, want):
+                if a.shape != w.shape or a.dtype != w.dtype:
+                    raise AssertionError(f"K2 {name} {part}: {tuple(a.shape)} {a.dtype} != "
+                                         f"plain {tuple(w.shape)} {w.dtype}")
+                err = max(err, float((a.float() - w.float()).abs().max()))
+                ok = ok and bool(torch.allclose(a.float(), w.float(), atol=atol, rtol=rtol))
+            if t % 4 and float(got[2][..., (t // 4) * 4:, :].abs().max()) != 0.0:
+                raise AssertionError(f"K2 {name}: dropped frames got a gradient")
+            ms = time_ms(lambda: k.masked_istft_bwd(re, im, mask, g))
+            plain_ms = time_ms(lambda: k.masked_istft_bwd_plain(re, im, mask, g))
+            flops, spectra, mask_bytes = istft_work(re, mask)
+            nbytes = spectra + 2 * mask_bytes + g.numel() * 4 + 2 * re.numel() * 4
+            bound_ms, bound_by = bound(flops, nbytes)
+            log(f"K2 {name} {shape}: max|kernel - plain| {err:.3e} "
+                f"(atol {atol:g}, rtol {rtol:g}) -> {'ok' if ok else 'FAIL'}; "
+                f"kernel {ms:.3f} ms, plain (cuBLAS) {plain_ms:.3f} ms, bound "
+                f"{bound_ms:.3f} ms by {bound_by} [{card}]")
+            if not ok:
+                raise AssertionError(f"K2 {name} disagrees with its plain version")
+            result[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by}
     return result
 
 
@@ -181,15 +266,15 @@ def write_model_dir(model_dir: Path) -> None:
     save_params(str(model_dir), model.state_dict())
 
 
-def write_clip(folder: Path) -> np.ndarray:
+def write_clip(folder: Path, seed: int = SEED, level: float = 1.0) -> np.ndarray:
     """A 4 s clip in the packed layout (data/packed.py), written with numpy
     only: PCM16 FOA audio, 10 fps uint8 RGB frames (a bright blob moving
-    over a textured background) and the audio power index. Returns the
-    int16 audio."""
-    rng = np.random.RandomState(SEED)
+    over a textured background) and the audio power index. `level` scales
+    the audio (1.0: an RMS of about 0.19). Returns the int16 audio."""
+    rng = np.random.RandomState(seed)
     n = CLIP_SECONDS * RATE
     t = np.arange(n) / RATE
-    w = 0.3 * np.sin(2 * np.pi * 440 * t) + 0.1 * rng.randn(n)
+    w = level * (0.3 * np.sin(2 * np.pi * 440 * t) + 0.1 * rng.randn(n))
     az = np.linspace(-np.pi, np.pi, n)
     foa = np.stack([w, w * np.sin(az), 0.2 * w, w * np.cos(az)], 1)
     audio = np.clip(np.round(foa * 32767 * 0.8), -32768, 32767).astype(np.int16)
@@ -222,7 +307,7 @@ def write_clip(folder: Path) -> np.ndarray:
     return audio
 
 
-def slice_phase(card: str) -> dict:
+def slice_phase(card: str) -> None:
     from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix
     from spatialaudiogen_tpu_torch.ops import masked_istft as k1
 
@@ -232,15 +317,16 @@ def slice_phase(card: str) -> dict:
     log(f"slice: flagship model dir and {CLIP_SECONDS} s packed clip written")
 
     engine = MonoToAmbix(str(model_dir), batch_size=DEPLOY_BATCH, device=DEVICE)
-    k1.launch_count = 0
+    k1.launch_count = k1.bwd_launch_count = 0
     t0 = time.perf_counter()
     ambi = engine.deploy(str(clip), deploy_start=DEPLOY_START,
                          deploy_duration=DEPLOY_SECONDS)
     first_s = time.perf_counter() - t0
-    launches = k1.launch_count
+    launches, bwd_launches = k1.launch_count, k1.bwd_launch_count
     n = int(round(DEPLOY_SECONDS * RATE))
     log(f"deploy (card, batch {DEPLOY_BATCH}): shape {ambi.shape}, "
-        f"{first_s:.3f} s wall (first call), K1 launches {launches}")
+        f"{first_s:.3f} s wall (first call), K1 launches {launches}, "
+        f"K2 launches {bwd_launches}")
     if ambi.shape != (n, 4):
         raise AssertionError(f"deploy shape {ambi.shape} != {(n, 4)}")
     if not np.isfinite(ambi).all():
@@ -251,6 +337,8 @@ def slice_phase(card: str) -> dict:
         raise AssertionError("W passthrough is not the input bit for bit")
     if launches < 1:
         raise AssertionError("the deploy path never launched the K1 kernel")
+    if bwd_launches:
+        raise AssertionError("the deploy path launched the backward kernel")
     if not np.abs(ambi[:, 1:]).max() > 0:
         raise AssertionError("predicted channels are all zero")
 
@@ -274,11 +362,56 @@ def slice_phase(card: str) -> dict:
         f"relative L2 {err:.3e} (limit 1e-4)")
     if not err <= 1e-4:
         raise AssertionError(f"card and CPU deploy disagree: relative L2 {err:.3e}")
-    return {"launches": launches, "deploy_first_s": first_s, "deploy_warm_s": warm_s}
+
+
+KERNEL_FAMILIES = (  # (family, substrings of the kernel name), first match wins
+    ("K1 masked_istft (fwd)", ("masked_istft_fwd",)),
+    ("K2 masked_istft (bwd)", ("masked_istft_bwd",)),
+    ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit_", "winograd",
+                             "fft", "pointwise_mult_and_sum")),
+    ("GEMM (cuBLAS)", ("gemm", "sm90_xmma", "cutlass", "ampere_sgemm", "Kernel2")),
+    ("batch norm", ("batch_norm", "bn_")),
+    ("optimizer (Adam)", ("multi_tensor", "adam", "Adam")),
+    ("reduction", ("reduce", "Reduce")),
+    ("copy / layout", ("copy", "Memcpy", "Memset", "cat", "transpose", "pad", "unfold",
+                       "index", "scatter", "gather")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled")),
+)
+
+
+def profile_step(step_fn, card: str, what: str) -> None:
+    """Device time of one call of step_fn by kernel family (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        log(f"{what} profile: torch.profiler recorded no device kernels; not measured")
+        return
+    totals: dict = {}
+    by_name: dict = {}
+    for e in kernels:
+        family = next((fam for fam, keys in KERNEL_FAMILIES
+                       if any(key in e.name for key in keys)), "other")
+        ms = e.time_range.elapsed_us() / 1e3
+        totals[family] = totals.get(family, 0.0) + ms
+        by_name[family, e.name] = by_name.get((family, e.name), 0.0) + ms
+    busy = sum(totals.values())
+    log(f"{what} profile: {len(kernels)} kernels, device busy "
+        f"{busy:.2f} ms of {wall_ms:.2f} ms wall (profiled) [{card}]")
+    for family, ms in sorted(totals.items(), key=lambda kv: -kv[1]):
+        top_ms, top = max((t, name) for (fam, name), t in by_name.items() if fam == family)
+        log(f"  {family:24s} {ms:9.3f} ms  {100 * ms / busy:5.1f}%   largest "
+            f"{top_ms:.3f} ms {top[:90]}")
 
 
 # ---------------------------------------------------------------------------
-# 5. numbers: device-forward realtime factor
+# 5. numbers: device-forward realtime factor and its profile
 # ---------------------------------------------------------------------------
 
 def forward_numbers(card: str) -> None:
@@ -304,8 +437,150 @@ def forward_numbers(card: str) -> None:
         rtf = batch * g.snd_dur / RATE / (ms / 1e3)
         log(f"device forward batch {batch} f32: {ms:.2f} ms -> {rtf:.1f}x realtime, "
             f"{batch / (ms / 1e3):.0f} windows/s [{card}]")
+        if batch == FORWARD_BATCHES[-1]:
+            with torch.no_grad():
+                profile_step(lambda: model(audio, video), card, f"device forward batch {batch}")
         del audio, video
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# 6. train: cli.train on the card, then deploy the trained model
+# ---------------------------------------------------------------------------
+
+def write_train_db(db: Path) -> None:
+    """Two 4 s packed clips whose audio_pow.lst rows all pass the train
+    feeder's 0.2 silence gate (data/pipeline.py)."""
+    for i in range(2):
+        write_clip(db / f"clip{i}", seed=SEED + 10 + i, level=1.6)
+        levels = [float(line.split()[1]) for line in
+                  (db / f"clip{i}" / "audio_pow.lst").read_text().splitlines()]
+        if min(levels) <= 0.2:
+            raise AssertionError(f"train clip {i}: audio_pow.lst level {min(levels):.3f} "
+                                 f"would be gated out by the feeder")
+
+
+def train_phase(card: str) -> dict:
+    from spatialaudiogen_tpu_torch.cli import train as cli_train
+    from spatialaudiogen_tpu_torch.config import TrainConfig
+    from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix
+    from spatialaudiogen_tpu_torch.models.convert import load_params
+    from spatialaudiogen_tpu_torch.ops import masked_istft as k
+    from spatialaudiogen_tpu_torch.train.state import create_train_state
+
+    db, model_dir = SCRATCH / "train_db", SCRATCH / "trained"
+    write_train_db(db)
+    batch = TRAIN_BATCHES[0]
+    argv = [str(db), str(model_dir), "--encoders", "audio", "video",
+            "--batch_size", str(batch), "--n_iters", str(TRAIN_STEPS),
+            "--log_every", "1", "--ckpt_every", "0", "--n_workers", "4",
+            "--seed", str(SEED), "--device", DEVICE]
+    log(f"train: cli.train {' '.join(argv[2:])}")
+    k.launch_count = k.bwd_launch_count = 0
+    t0 = time.perf_counter()
+    _, steps = cli_train.main(argv)
+    wall = time.perf_counter() - t0
+    launches, bwd_launches = k.launch_count, k.bwd_launch_count
+    recs = [json.loads(line) for line in
+            (model_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["total_loss"] for r in recs]
+    log(f"train (card, batch {batch}): {steps} steps in {wall:.1f} s wall (first steps "
+        f"included), K1 launches {launches}, K2 launches {bwd_launches}, losses "
+        f"{[round(x, 3) for x in losses]}")
+    if steps != TRAIN_STEPS or [r["step"] for r in recs] != list(range(TRAIN_STEPS)):
+        raise AssertionError(f"train ran {steps} steps, logged {[r['step'] for r in recs]}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train losses not finite: {losses}")
+    if launches < TRAIN_STEPS or bwd_launches < TRAIN_STEPS:
+        raise AssertionError(f"K1/K2 launched {launches}/{bwd_launches} times in "
+                             f"{TRAIN_STEPS} train steps")
+    init = create_train_state(TrainConfig.load(str(model_dir)), "cpu", seed=SEED)
+    trained = load_params(str(model_dir))
+    moved = [name for name, v in init.model.state_dict().items()
+             if not torch.equal(v, trained[name])]
+    if not any(name.endswith(".weight") for name in moved):
+        raise AssertionError("training moved no weight")
+    log(f"train: {len(moved)} of {len(trained)} tensors moved from their initial values")
+
+    engine = MonoToAmbix(str(model_dir), batch_size=DEPLOY_BATCH, device=DEVICE)
+    ambi = engine.deploy(str(db / "clip0"), deploy_start=DEPLOY_START, deploy_duration=1.0)
+    if ambi.shape != (RATE, 4) or not np.isfinite(ambi).all():
+        raise AssertionError(f"deploy of the trained model: shape {ambi.shape}, "
+                             f"finite {np.isfinite(ambi).all()}")
+    log(f"deploy of the trained model (card): shape {ambi.shape}, finite, "
+        f"max |pred| {float(np.abs(ambi[:, 1:]).max()):.4f}")
+    return {"launches": launches, "bwd_launches": bwd_launches}
+
+
+# ---------------------------------------------------------------------------
+# 7. train step, card against CPU
+# ---------------------------------------------------------------------------
+
+def synthetic_batch(gen, batch: int, g, frame_hw, device) -> dict:
+    return {"ambix": 0.1 * torch.randn((batch, g.snd_size, g.num_ambi_channels),
+                                       generator=gen, device=device),
+            "audio_mask": torch.ones((batch, g.num_ambi_channels), device=device),
+            "video": torch.randint(0, 256, (batch, g.vid_dur) + tuple(frame_hw) + (3,),
+                                   generator=gen, device=device, dtype=torch.uint8)}
+
+
+def train_card_vs_cpu(card: str) -> None:
+    """Reduced flagship (8 tracks, 64x128 frames, batch 3), same weights and
+    batch: loss and flattened gradient, relative, limit 1e-4."""
+    from spatialaudiogen_tpu_torch.config import SptAudioGenConfig
+    from spatialaudiogen_tpu_torch.models.sptaudiogen import SptAudioGen
+    from spatialaudiogen_tpu_torch.train.lr import make_optimizer
+    from spatialaudiogen_tpu_torch.train.state import TrainState
+    from spatialaudiogen_tpu_torch.train.steps import train_step
+
+    cfg = SptAudioGenConfig(sep_num_tracks=8)
+    batch = synthetic_batch(torch.Generator().manual_seed(SEED + 3), 3, cfg.geometry,
+                            (64, 128), "cpu")
+    result = {}
+    for dev in ("cpu", DEVICE):
+        model = SptAudioGen(cfg, frame_hw=(64, 128)).init_weights(
+            torch.Generator().manual_seed(SEED)).to(dev)
+        state = TrainState(model, make_optimizer(model.parameters()))
+        metrics = train_step(state, {k: v.to(dev) for k, v in batch.items()}, 1e-4)
+        grad = torch.cat([p.grad.flatten().double().cpu() for p in model.parameters()])
+        result[dev] = float(metrics["total_loss"]), grad
+    (loss_c, g_c), (loss_g, g_g) = result["cpu"], result[DEVICE]
+    loss_err = abs(loss_g - loss_c) / abs(loss_c)
+    grad_err = float((g_g - g_c).norm() / g_c.norm())
+    log(f"train step card vs CPU (reduced flagship, TF32 off): loss {loss_g:.6f} vs "
+        f"{loss_c:.6f} (relative {loss_err:.2e}), gradient relative L2 {grad_err:.2e} "
+        f"(limit 1e-4)")
+    if not (loss_err <= 1e-4 and grad_err <= 1e-4):
+        raise AssertionError("card and CPU train steps disagree")
+
+
+# ---------------------------------------------------------------------------
+# 8. train numbers: step time, samples/s, and a profile by kernel family
+# ---------------------------------------------------------------------------
+
+def train_numbers(card: str) -> None:
+    from spatialaudiogen_tpu_torch.config import TrainConfig
+    from spatialaudiogen_tpu_torch.train.state import create_train_state
+    from spatialaudiogen_tpu_torch.train.steps import train_step
+
+    cfg = TrainConfig(encoders=("audio", "video"), frame_hw=FRAME_HW, seed=SEED)
+    g = cfg.model_config().geometry
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    for batch in TRAIN_BATCHES:
+        state = create_train_state(cfg, DEVICE)
+        data = synthetic_batch(gen, batch, g, FRAME_HW, DEVICE)
+
+        def step():
+            train_step(state, data, 1e-4, cfg.weight_decay)
+
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(step, warmup=2, iters=5)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        log(f"train step batch {batch} f32: {ms:.2f} ms -> {batch / (ms / 1e3):.1f} "
+            f"samples/s, peak memory {peak_gb:.1f} GB [{card}]")
+        profile_step(step, card, f"train step batch {batch}")
+        del state, data
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -315,18 +590,34 @@ def main() -> int:
     try:
         build_kernels()
         k1_times = kernel_phase(card)
-        slice_result = slice_phase(card)
+        k2_times = bwd_kernel_phase(card)
+        slice_phase(card)
         forward_numbers(card)
+        train = train_phase(card)
+        train_card_vs_cpu(card)
+        train_numbers(card)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
-    flagship = k1_times["flagship f32"]
-    kernels = [{"name": "masked_istft", "route": "cuda",
-                "source": "spatialaudiogen_tpu_torch/ops/csrc/masked_istft.cu",
-                "replaces": K1_REPLACES, "launches": slice_result["launches"],
-                "max_abs_err": flagship["max_abs_err"], "ms": flagship["ms"],
-                "plain_ms": flagship["plain_ms"]}]
-    if "jax" in sys.modules:
-        raise AssertionError("the port imported jax")
+    kernels = []
+    for name, source, replaces, times, launches in (
+            ("masked_istft", "masked_istft.cu", K1_REPLACES, k1_times, train["launches"]),
+            ("masked_istft_bwd", "masked_istft_bwd.cu", K2_REPLACES, k2_times,
+             train["bwd_launches"])):
+        flagship = times["flagship f32"]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"spatialaudiogen_tpu_torch/ops/csrc/{source}",
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": flagship["max_abs_err"], "ms": flagship["ms"],
+            "plain_ms": flagship["plain_ms"], "bound_ms": flagship["bound_ms"],
+            "bound_by": flagship["bound_by"],
+            # the plain version is cuBLAS matmuls plus elementwise ops: no
+            # single library call computes the fused function
+            "library_ms": flagship["plain_ms"]})
+    imported = sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("jax", "spatialaudiogen_tpu"))
+    if imported:
+        raise AssertionError(f"the port imported {imported[:5]}")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

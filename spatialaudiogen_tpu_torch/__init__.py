@@ -1,14 +1,16 @@
 """spatialaudiogen_tpu_torch — PyTorch/CUDA port of spatialaudiogen_tpu.
 
 The JAX package beside it is the reference. This package mirrors its module
-names (config, ops.dft, models.layers/resnet/sptaudiogen, deploy.deploy,
-cli.deploy) so each port sits next to its counterpart, and reuses the JAX
-package's framework-free host modules (dsp.geometry, data.readers/packed,
-utils.io_audio, data.generic). It imports torch and numpy, never jax.
+names (config, dsp, data, ops.dft, models, train, deploy.deploy, cli) so
+each port sits next to its counterpart, and keeps its own copies of the
+framework-free host modules it needs (dsp.geometry, data.readers/packed,
+utils.io_audio, ...). It imports torch and numpy, never jax and nothing of
+the JAX package.
 
-Covered so far: the flagship model's forward pass and the batch deploy
-engine (`deploy.deploy.MonoToAmbix`), with the fused masked comb-ISTFT as a
-hand-written CUDA kernel (ops/csrc/masked_istft.cu).
+Covered so far: the flagship model's forward pass, the batch deploy engine
+(`deploy.deploy.MonoToAmbix`) and training on one device
+(`train.trainer.Trainer`, `cli.train`), with the fused masked comb-ISTFT
+and its fused backward as hand-written CUDA kernels (ops/csrc/).
 """
 
 __version__ = "0.1.0"

@@ -44,7 +44,7 @@ def parse_arguments(argv=None):
 
 def main(argv=None):
     args = parse_arguments(argv)
-    from spatialaudiogen_tpu.utils.io_audio import save_wav
+    from spatialaudiogen_tpu_torch.utils.io_audio import save_wav
     from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix
 
     model = MonoToAmbix(args.model_dir, batch_size=args.batch_size,

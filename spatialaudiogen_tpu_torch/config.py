@@ -1,11 +1,11 @@
-"""Configuration: the `TrainConfig` subset that deploy reads, and the model
-config (counterparts of spatialaudiogen_tpu.config and
+"""Configuration: `TrainConfig` (CLI-flag parity + persistence/resume) and
+the model config (counterparts of spatialaudiogen_tpu.config and
 spatialaudiogen_tpu.models.sptaudiogen.SptAudioGenConfig).
 
 `train-params.json` (or the reference's `train-params.txt`) in a model dir
-is read with the same rules as the JAX package (`TrainConfig.load`,
-`_parse_txt`, `_coerce`); fields this package does not use are ignored.
-Only float32 compute is supported so far.
+is read and written with the same rules as the JAX package
+(`TrainConfig.save/load`, `_parse_txt`, `_coerce`), so model dirs move
+between the two packages. Only float32 compute is supported so far.
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ import json
 import os
 from typing import Any
 
-from spatialaudiogen_tpu.dsp.geometry import ModelGeometry
+from spatialaudiogen_tpu_torch.dsp.geometry import ModelGeometry
 
 AUDIO, VIDEO, FLOW = "audio", "video", "flow"
 ENCODERS = (AUDIO, VIDEO, FLOW)
@@ -72,10 +72,14 @@ class SptAudioGenConfig:
 
 @dataclasses.dataclass
 class TrainConfig:
-    """The fields of spatialaudiogen_tpu.config.TrainConfig that deploy
-    reads; defaults are the JAX package's."""
+    """The fields of spatialaudiogen_tpu.config.TrainConfig, with its
+    defaults. Some fields select paths that are not ported yet (bf16,
+    multi-device, TensorBoard histograms, pretrained ResNet weights);
+    cli.train refuses those values."""
 
+    db_dir: str = ""
     model_dir: str = ""
+    subset_fn: str | None = None
     encoders: tuple = (AUDIO, VIDEO, FLOW)
     separation: str = FREQ_MASK
     ambi_order: int = 1
@@ -83,13 +87,32 @@ class TrainConfig:
     video_rate: int = 10
     context: float = 1.0
     sample_dur: float = 0.1
+    n_iters: int = 1000000
+    lr: float = 1e-4
+    lr_decay: float = 0.5
+    lr_iters: int = 250000
+    batch_size: int = 32
     num_sep_tracks: int = 32
     fft_window: float = 0.025
+    context_units: tuple = (64, 128, 128)
+    freq_mask_units: tuple = (256,)
     loc_units: tuple = (512, 512)
+    resume: bool = False
+    n_workers: int = 8
+    log_every: int = 20
+    ckpt_every: int = 5000
+    tb_histograms: int = 0
+    tb_activations: bool = False
+    seed: int = 0
     frame_hw: tuple = (224, 448)
+    n_data: int | None = None
+    n_model: int = 1
+    weight_decay: float = 5e-4
+    clip_norm: float | None = None
     dft_precision: str = "highest"
     compute_dtype: str = "float32"
     pallas_precision: str = "default"
+    pretrained_resnet: str | None = None
 
     def model_config(self) -> SptAudioGenConfig:
         if self.compute_dtype != "float32":
@@ -113,11 +136,19 @@ class TrainConfig:
         )
 
     def save(self, model_dir: str | None = None):
-        """Write train-params.json (readable by both packages)."""
+        """Write train-params.json and the reference-format train-params.txt
+        (readable by both packages)."""
         model_dir = model_dir or self.model_dir
         os.makedirs(model_dir, exist_ok=True)
+        payload = dataclasses.asdict(self)
         with open(os.path.join(model_dir, "train-params.json"), "w") as f:
-            json.dump(dataclasses.asdict(self), f, indent=2, default=list)
+            json.dump(payload, f, indent=2, default=list)
+        # reference-compatible key: value dump (myutils.py:29-32 format)
+        with open(os.path.join(model_dir, "train-params.txt"), "w") as f:
+            for k, v in payload.items():
+                if isinstance(v, tuple):
+                    v = list(v)
+                f.write(f"{k}: {v}\n")
 
     @classmethod
     def load(cls, model_dir: str,
@@ -180,7 +211,7 @@ def _parse_txt(fn: str) -> dict:
 def _coerce(payload: dict) -> dict:
     known = {f.name for f in dataclasses.fields(TrainConfig)}
     out = {k: v for k, v in payload.items() if k in known}
-    for key in ("encoders", "loc_units", "frame_hw"):
+    for key in ("encoders", "context_units", "freq_mask_units", "loc_units", "frame_hw"):
         if key in out and isinstance(out[key], list):
             out[key] = tuple(out[key])
     return out

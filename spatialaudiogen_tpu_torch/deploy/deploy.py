@@ -29,13 +29,13 @@ from collections import deque
 import numpy as np
 import torch
 
-from spatialaudiogen_tpu.data.generic import BackgroundGenerator
-from spatialaudiogen_tpu.data.packed import PackedVideoReader, is_packed
-from spatialaudiogen_tpu.data.readers import SampleReader, VideoFrameReader, img_prep_default
-from spatialaudiogen_tpu.utils.io_audio import pcm16_exact
 from spatialaudiogen_tpu_torch.config import FLOW, VIDEO, TrainConfig
+from spatialaudiogen_tpu_torch.data.generic import BackgroundGenerator
+from spatialaudiogen_tpu_torch.data.packed import PackedVideoReader, is_packed
+from spatialaudiogen_tpu_torch.data.readers import SampleReader, VideoFrameReader, img_prep_default
 from spatialaudiogen_tpu_torch.models.convert import load_params
 from spatialaudiogen_tpu_torch.models.sptaudiogen import SptAudioGen
+from spatialaudiogen_tpu_torch.utils.io_audio import pcm16_exact
 
 DEPLOY_DURATION = 0.1  # deploy.py:49
 

@@ -1,5 +1,5 @@
 """Layer wrappers with the reference library's conventions (port of
-spatialaudiogen_tpu.models.layers, forward only).
+spatialaudiogen_tpu.models.layers).
 
 Each wrapper holds one torch layer under the child name the Flax module
 uses (`dense`, `conv`, `bn`, `deconv`), so state_dict keys are the Flax
@@ -12,8 +12,9 @@ Tensors are NCHW; the conventions that matter for parity:
     (core.py:137-140); the JAX kernel is an unflipped lhs-dilated conv,
     so conv_transpose2d gets the spatially flipped kernel (models.convert);
   * BatchNorm has eps 1e-3 and normalises with the biased batch variance
-    when running on batch statistics; it never updates its running
-    averages (there is no train step yet).
+    when running on batch statistics; in a train step it updates its
+    running averages with Flax's momentum 0.99 and the biased variance;
+  * `l2_regularization` is TF's l2_regularizer sum over kernels only.
 """
 
 from __future__ import annotations
@@ -68,19 +69,32 @@ class BatchNorm(nn.Module):
 
     `batch_stats=True` normalises with the statistics of the batch it is
     given, as the reference does in its visual encoders even at eval
-    (model.py:388); False uses the stored running averages. Neither mode
-    writes the running averages.
+    (model.py:388); False uses the stored running averages. With
+    `update_stats=True` (a train step) it also moves the running averages
+    toward the batch's, as the Flax module does when its batch_stats
+    collection is mutable (layers.py:78-90): ra = m*ra + (1-m)*batch with
+    m = 0.99 and the biased variance. (F.batch_norm's own update stores the
+    unbiased variance and takes the complementary momentum, so it is not
+    used.)
     """
 
-    def __init__(self, features: int, epsilon: float = 1e-3):
+    def __init__(self, features: int, epsilon: float = 1e-3, momentum: float = 0.99):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x, batch_stats: bool):
+    def forward(self, x, batch_stats: bool, update_stats: bool = False):
+        if update_stats:
+            if not batch_stats:
+                raise ValueError("running averages update from batch statistics")
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+                self.mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+                self.var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
         if batch_stats:
             # training=True with no running buffers: batch statistics,
             # biased variance, nothing updated
@@ -107,12 +121,12 @@ class Conv2D(nn.Module):
         self.bn = BatchNorm(features) if use_batch_norm else None
         self.activation = activation
 
-    def forward(self, x, batch_stats: bool = True):
+    def forward(self, x, batch_stats: bool = True, update_stats: bool = False):
         if self.padding == "SAME":
             x = pad_same(x, self.kernel_size, self.strides)
         y = self.conv(x)
         if self.bn is not None:
-            y = self.bn(y, batch_stats)
+            y = self.bn(y, batch_stats, update_stats)
         return self.activation(y) if self.activation else y
 
 
@@ -158,3 +172,20 @@ def init_weights(model: nn.Module, generator: torch.Generator,
                 mod.mean.zero_()
                 mod.var.fill_(1.0)
     return model
+
+
+def l2_regularization(model: nn.Module, weight_decay: float = 5e-4,
+                      exclude: Sequence[str] = ()) -> torch.Tensor:
+    """Sum of wd/2 * ||kernel||^2 over all conv, dense and deconv kernels.
+
+    Matches TF's l2_regularizer(scale) = scale*sum(w^2)/2 collection
+    (core.py:47-70) as the JAX package does (layers.py:236-258): biases and
+    BN scale/offset are skipped, and `exclude` lists parameter-name
+    substrings ('.'-joined) also exempted, e.g. the localization output
+    layer (model.py:253-256)."""
+    squares = []
+    for name, mod in model.named_modules():
+        if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            if not any(pat in f"{name}.weight" for pat in exclude):
+                squares.append(torch.sum(mod.weight.float() ** 2))
+    return 0.5 * weight_decay * torch.stack(squares).sum()

@@ -4,7 +4,9 @@ pyutils/tflib/models/image/resnet.py:110-249).
 
 Plain two-conv residual blocks; channel-changing stages take a 1x1
 un-normalised, bias-free shortcut conv. BN runs on batch statistics when
-`batch_stats` is True (the reference quirk, see models.layers.BatchNorm).
+`batch_stats` is True (the reference quirk, see models.layers.BatchNorm),
+and updates its running averages when `update_stats` is True (a train
+step).
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ class ResidualBlock(nn.Module):
         self.conv_1 = _conv_bn(channels, channels, 3, 1, relu=True)
         self.conv_2 = _conv_bn(channels, channels, 3, 1, relu=False)
 
-    def forward(self, x, batch_stats: bool):
-        y = self.conv_2(self.conv_1(x, batch_stats), batch_stats)
+    def forward(self, x, batch_stats: bool, update_stats: bool = False):
+        y = self.conv_1(x, batch_stats, update_stats)
+        y = self.conv_2(y, batch_stats, update_stats)
         return F.relu(y + x)
 
 
@@ -50,14 +53,15 @@ class DownsampleBlock(nn.Module):
         self.conv_1 = _conv_bn(in_channels, features, 3, strides, relu=True)
         self.conv_2 = _conv_bn(features, features, 3, 1, relu=False)
 
-    def forward(self, x, batch_stats: bool):
+    def forward(self, x, batch_stats: bool, update_stats: bool = False):
         if self.shortcut is not None:
             shortcut = self.shortcut(x)
         elif self.strides == 1:
             shortcut = x
         else:
             shortcut = F.max_pool2d(x, self.strides, self.strides)
-        y = self.conv_2(self.conv_1(x, batch_stats), batch_stats)
+        y = self.conv_1(x, batch_stats, update_stats)
+        y = self.conv_2(y, batch_stats, update_stats)
         return F.relu(y + shortcut)
 
 
@@ -77,8 +81,8 @@ class ResNet18(nn.Module):
                 self.add_module(name, block)
                 self.blocks.append(name)
 
-    def forward(self, x, batch_stats: bool):
-        y = max_pool_same(self.conv1(x, batch_stats), 3, 2)
+    def forward(self, x, batch_stats: bool, update_stats: bool = False):
+        y = max_pool_same(self.conv1(x, batch_stats, update_stats), 3, 2)
         for name in self.blocks:
-            y = getattr(self, name)(y, batch_stats)
+            y = getattr(self, name)(y, batch_stats, update_stats)
         return y

@@ -1,5 +1,5 @@
 """SptAudioGen: mono + video -> first-order ambisonics (port of
-spatialaudiogen_tpu.models.sptaudiogen, forward only).
+spatialaudiogen_tpu.models.sptaudiogen).
 
 Public layouts are the JAX package's: audio (B, snd_size, n_in), frames
 (B, T, H, W, 3), output (B, snd_dur, n_out). Inside, tensors are NCHW with
@@ -185,8 +185,9 @@ class SeparationUNet(nn.Module):
         mask = mask.unflatten(1, (g.num_in_channels, cfg.sep_num_tracks))
         if taps is not None:
             taps["mask"] = mask
-        # CUDA tensors go through the fused kernel, CPU tensors through its
-        # plain version (the counterpart of _pallas_enabled's "auto")
+        # CUDA tensors go through the fused kernels (K1 forward, K2
+        # backward), CPU tensors through the plain version (the counterpart
+        # of _pallas_enabled's "auto")
         x_sep = masked_istft(stft_re, stft_im, mask, 4, cfg.pallas_precision)
         return x_sep[..., g.out_ss: g.out_tt]                # (B, n_in, tracks, snd_dur)
 
@@ -216,9 +217,13 @@ class SptAudioGen(nn.Module):
         return init_weights(self, generator,
                             small_init=(f"localization.{self.localization.output_layer}",))
 
-    def forward(self, audio, video=None, flow=None, taps: dict | None = None):
+    def forward(self, audio, video=None, flow=None, taps: dict | None = None,
+                train: bool = False):
         """audio (B, snd_size, n_in), frames (B, T, H, W, 3) -> (B, snd_dur, n_out).
 
+        `train=True` is the train step's forward: the visual encoders' BNs
+        run on batch statistics and update their running averages, as the
+        JAX model's apply(..., train=True, mutable=["batch_stats"]) does.
         Pass a dict as `taps` to receive the |STFT| (NHWC, as the JAX
         model's `stft_mag`) and the separation `mask`."""
         cfg, g = self.cfg, self.cfg.geometry
@@ -236,7 +241,8 @@ class SptAudioGen(nn.Module):
             if name in cfg.encoders:
                 assert frames is not None, f"{name} encoder requires {name} input"
                 x = frames.flatten(0, 1).permute(0, 3, 1, 2).contiguous()
-                enc[name] = getattr(self, f"{name}_encoder")(x, cfg.bn_batch_stats)
+                enc[name] = getattr(self, f"{name}_encoder")(
+                    x, train or cfg.bn_batch_stats, train)
         feats = self.bottleneck({k: (v[-1] if k == AUDIO else v)
                                  for k, v in enc.items()})
         weights, biases = self.localization(feats)
@@ -257,3 +263,8 @@ class SptAudioGen(nn.Module):
         ambi = torch.einsum("btoik,biktr->btro", weights, s)
         ambi = ambi + biases[..., 0][:, :, None]
         return ambi.reshape(b, g.snd_dur, g.num_out_channels)
+
+    def no_decay_paths(self) -> tuple:
+        """Parameter-name substrings excluded from L2 weight decay (the
+        localization output layer, model.py:253-256)."""
+        return (f"localization.{self.localization.output_layer}",)

@@ -19,7 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from spatialaudiogen_tpu.dsp.stft import hann_window
+from spatialaudiogen_tpu_torch.dsp.stft import frame_count, hann_window, loss_frame_windows
 
 
 @functools.lru_cache(maxsize=8)
@@ -66,14 +66,40 @@ def frame_signal_range(x: torch.Tensor, wind_size: int, n_overlap: int,
     return x.unfold(-1, wind_size, hop)[..., t0: t0 + n_frames, :]
 
 
+def frame_signal(x: torch.Tensor, wind_size: int, n_overlap: int) -> torch.Tensor:
+    """(..., N) -> (..., n_frames, wind_size), frame t starting at t*hop,
+    with n_frames = n_overlap * (N // wind_size - 1) (dsp.stft.frame_count;
+    the JAX package's full framing). A strided view, no copy."""
+    hop = wind_size // n_overlap
+    n_frames = frame_count(x.shape[-1], wind_size, n_overlap)
+    return x.unfold(-1, wind_size, hop)[..., :n_frames, :]
+
+
 def stft_real(x: torch.Tensor, wind_size: int, n_overlap: int,
-              frame_start: int, n_frames: int):
-    """Real-arithmetic STFT over a frame range: (..., N) -> (Re, Im), each
-    (..., n_frames, wind)."""
-    frames = frame_signal_range(x, wind_size, n_overlap, frame_start, n_frames)
+              frame_start: int | None = None, n_frames: int | None = None):
+    """Real-arithmetic STFT: (..., N) -> (Re, Im), each (..., n_frames, wind).
+
+    With frame_start/n_frames only that frame range is framed and
+    transformed; without them, the full framing (frame_signal)."""
+    if (n_frames is None) != (frame_start is None):
+        raise ValueError("frame_start and n_frames go together")
+    if frame_start is not None:
+        frames = frame_signal_range(x, wind_size, n_overlap, frame_start, n_frames)
+    else:
+        frames = frame_signal(x, wind_size, n_overlap)
     frames = frames * _window(wind_size, x.device, x.dtype)
     c, s = basis(wind_size, x.device, x.dtype)
     return torch.matmul(frames, c), torch.matmul(frames, s)
+
+
+def stft_for_loss_real(signal: torch.Tensor, window: int, n_overlap: int):
+    """Loss-side STFT (counterpart of the JAX ops.dft.stft_for_loss_real):
+    (B, N, C) -> (Re, Im) each (B, C, n_frames, window_pow2), with the
+    pow2 rounding and framing of dsp.stft.loss_frame_windows."""
+    windows, window = loss_frame_windows(signal, window, n_overlap)
+    windows = windows * _window(window, signal.device, signal.dtype)
+    c, s = basis(window, signal.device, signal.dtype)
+    return torch.matmul(windows, c), torch.matmul(windows, s)
 
 
 def istft_real(re: torch.Tensor, im: torch.Tensor, n_overlap: int) -> torch.Tensor:

@@ -1,16 +1,22 @@
-"""Fused masked comb-ISTFT (K1): the CUDA kernel's wrapper, its plain
-PyTorch version, and the kernel's build.
+"""Fused masked comb-ISTFT (K1) and its fused backward (K2): the CUDA
+kernels' wrappers, their plain PyTorch versions, the autograd function that
+joins them, and the kernels' build.
 
 `masked_istft` is the counterpart of
 spatialaudiogen_tpu.ops.pallas_kernels.masked_istft_pallas (same inputs and
-output; `interpret` has no counterpart). For CUDA tensors it launches the
-hand-written kernel in csrc/masked_istft.cu; for CPU tensors it runs
-`masked_istft_plain`, the counterpart of `masked_istft_reference`. There is
-no fallback between the two: a CUDA input the kernel cannot take raises.
+output; `interpret` has no counterpart), differentiable in all three
+inputs. For CUDA tensors the forward launches K1 (csrc/masked_istft.cu)
+and the backward K2 (csrc/masked_istft_bwd.cu); for CPU tensors it runs
+`masked_istft_plain`, the counterpart of `masked_istft_reference`, and
+autograd differentiates that. `masked_istft_bwd` is K2's wrapper and
+`masked_istft_bwd_plain` its plain version, the counterpart of
+`_bwd_xla`. There is no fallback between the routes: a CUDA input a kernel
+cannot take raises.
 
-The kernel is compiled with nvcc at first use into `build/` beside this
-file (`.gitignore` lists it) and rebuilt when the source's hash changes.
-It is a plain C entry point loaded with ctypes, so the build needs no
+The kernels are compiled with nvcc at first use into `build/` beside this
+file (`.gitignore` lists it), one nvcc per source, all started together,
+then linked into one library, rebuilt when any source's hash changes.
+They are plain C entry points loaded with ctypes, so the build needs no
 PyTorch headers and takes seconds.
 """
 
@@ -26,19 +32,22 @@ import time
 from pathlib import Path
 
 import torch
+import torch.nn.functional as F
 
 from spatialaudiogen_tpu_torch.ops.dft import basis, istft_real
 
-SOURCE = Path(__file__).parent / "csrc" / "masked_istft.cu"
+CSRC = Path(__file__).parent / "csrc"
+SOURCES = (CSRC / "masked_istft.cu", CSRC / "masked_istft_bwd.cu")
 BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-ROWS_PER_BLOCK = 128   # the kernel's BM: (track, frame) rows one block stages at a time
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ROWS_PER_BLOCK = 128   # K1's BM: (track, frame) rows one block stages at a time
 MAX_SMEM = 232448      # bytes of shared memory one block may use on Hopper
 
-# Launches of the CUDA kernel (never of the plain version); read and reset
-# by callers that need to show the main path went through the kernel.
+# Launches of K1 and K2 (never of the plain versions); read and reset by
+# callers that need to show the main path went through the kernels.
 launch_count = 0
+bwd_launch_count = 0
 
 
 def masked_istft_plain(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
@@ -58,21 +67,78 @@ def masked_istft(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
     re, im: (B, n_in, T, F) float32 spectra; mask: (B, n_in, TR, T, F)
     float32 or bfloat16. Returns (B, n_in, TR, out_len) float32 track
     waveforms, out_len = (T//4)*F - 3*F/4. Trailing frames beyond a multiple
-    of n_overlap are dropped, as istft_real does. `precision` is accepted
-    for parity with masked_istft_pallas; the kernel runs FP32 FMAs for both
-    values.
+    of n_overlap are dropped, as istft_real does, and get zero gradient.
+    `precision` is accepted for parity with masked_istft_pallas; the
+    kernels run FP32 FMAs for both values.
     """
     if precision not in ("highest", "default"):
         raise ValueError(f"precision must be 'highest' or 'default', got {precision!r}")
-    devices = {re.device, im.device, mask.device}
+    if _route(re, im, mask) == "cpu":
+        return masked_istft_plain(re, im, mask, n_overlap)
+    return _MaskedISTFT.apply(re, im, mask, n_overlap)
+
+
+def masked_istft_bwd_plain(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
+                           g: torch.Tensor, n_overlap: int = 4):
+    """Plain PyTorch version of K2, the counterpart of _bwd_xla: the
+    gradients (d_re, d_im, d_mask) of masked_istft at output cotangent g
+    (B, n_in, TR, out_len). d_re/d_im are float32, d_mask is in the mask's
+    dtype; trailing frames beyond a multiple of n_overlap get zeros."""
+    b, n_in, t, f = re.shape
+    hop = f // n_overlap
+    t_use = (t // n_overlap) * n_overlap
+    front = (n_overlap - 1) * hop
+    # scatter g back onto the comb streams: frame t, column n of a track
+    # is output sample (t - n_overlap + 1)*hop + n, zero outside [0, out_len)
+    gp = F.pad(g / float(n_overlap), (front, t_use * hop - g.shape[-1]))
+    gx = gp.unfold(-1, f, hop)[..., :t_use, :] / float(f)   # (B, n_in, TR, t_use, F)
+    c, s = basis(f, re.device, re.dtype)
+    g_rm = torch.matmul(gx, c)                     # C, S symmetric: C^T = C
+    g_im = torch.matmul(gx, s)
+    re_u, im_u, m_u = re[:, :, None, :t_use], im[:, :, None, :t_use], mask[..., :t_use, :]
+    d_mask = (g_rm * re_u + g_im * im_u).to(mask.dtype)
+    d_re = (g_rm * m_u).sum(2)
+    d_im = (g_im * m_u).sum(2)
+    if t_use != t:
+        d_re, d_im = (F.pad(x, (0, 0, 0, t - t_use)) for x in (d_re, d_im))
+        d_mask = F.pad(d_mask, (0, 0, 0, t - t_use))
+    return d_re, d_im, d_mask
+
+
+def masked_istft_bwd(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
+                     g: torch.Tensor, n_overlap: int = 4):
+    """K2's wrapper: the gradients (d_re, d_im, d_mask) of masked_istft at
+    output cotangent g. CUDA tensors launch K2, CPU tensors run
+    masked_istft_bwd_plain."""
+    if _route(re, im, mask, g) == "cpu":
+        return masked_istft_bwd_plain(re, im, mask, g, n_overlap)
+    return _launch_bwd(re, im, mask, g, n_overlap)
+
+
+class _MaskedISTFT(torch.autograd.Function):
+    """K1 forward, K2 backward (the custom VJP of masked_istft_pallas)."""
+
+    @staticmethod
+    def forward(ctx, re, im, mask, n_overlap):
+        ctx.save_for_backward(re, im, mask)
+        ctx.n_overlap = n_overlap
+        return _launch(re, im, mask, n_overlap)
+
+    @staticmethod
+    def backward(ctx, g):
+        re, im, mask = ctx.saved_tensors
+        d_re, d_im, d_mask = _launch_bwd(re, im, mask, g.contiguous(), ctx.n_overlap)
+        return d_re, d_im, d_mask, None
+
+
+def _route(*tensors) -> str:
+    devices = {x.device for x in tensors}
     if len(devices) != 1:
         raise ValueError(f"inputs on different devices: {sorted(map(str, devices))}")
-    device = re.device
-    if device.type == "cpu":
-        return masked_istft_plain(re, im, mask, n_overlap)
-    if device.type != "cuda":
+    device = devices.pop()
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"masked_istft runs on CPU or CUDA tensors, got {device}")
-    return _launch(re, im, mask, n_overlap)
+    return device.type
 
 
 def _check(cond: bool, msg: str):
@@ -90,12 +156,9 @@ def _bn_stride(x: torch.Tensor) -> int:
     return x.stride(1) if n_in > 1 else x.stride(0)
 
 
-def _launch(re, im, mask, n_overlap):
-    global launch_count
+def _check_inputs(re, im, mask, n_overlap):
+    """Checks what both kernels take; returns (b, n_in, tracks, t, t_use, f)."""
     _check(n_overlap == 4, f"n_overlap must be 4, got {n_overlap}")
-    _check(not (re.requires_grad or im.requires_grad or mask.requires_grad),
-           "no backward yet: call under torch.no_grad() (the fused backward "
-           "comes with the train step)")
     _check(re.dtype == im.dtype == torch.float32, f"re/im must be float32, got "
            f"{re.dtype}/{im.dtype}")
     _check(mask.dtype in (torch.float32, torch.bfloat16),
@@ -106,7 +169,6 @@ def _launch(re, im, mask, n_overlap):
     _check(mask.dim() == 5 and mask.shape[:2] == (b, n_in) and mask.shape[3:] == (t, f),
            f"mask must be (B, n_in, TR, T, F) = ({b}, {n_in}, TR, {t}, {f}), "
            f"got {tuple(mask.shape)}")
-    tracks = mask.shape[2]
     t_use = (t // n_overlap) * n_overlap
     _check(t_use >= n_overlap, f"needs at least {n_overlap} frames, got {t}")
     _check(f % (4 * 32) == 0, f"F must be a multiple of 128, got {f}")
@@ -116,7 +178,22 @@ def _launch(re, im, mask, n_overlap):
         _check(all(s % 4 == 0 for s, n in zip(x.stride()[:-1], x.shape[:-1]) if n > 1),
                f"{name}'s strides {x.stride()} must be multiples of 4 elements")
         _check(x.data_ptr() % align == 0, f"{name} must be {align}-byte aligned")
+    return b, n_in, mask.shape[2], t, t_use, f
 
+
+def _device_index(x: torch.Tensor) -> int:
+    return x.device.index if x.device.index is not None else torch.cuda.current_device()
+
+
+def _raise_on(err: int, lib, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} "
+                           f"({lib.sag_cuda_error_string(err).decode()})")
+
+
+def _launch(re, im, mask, n_overlap):
+    global launch_count
+    b, n_in, tracks, t, t_use, f = _check_inputs(re, im, mask, n_overlap)
     lib = _library()
     tpb = min(tracks, max(1, ROWS_PER_BLOCK // t_use))
     smem = lib.sag_masked_istft_smem_bytes(tpb, t_use)
@@ -133,13 +210,44 @@ def _launch(re, im, mask, n_overlap):
         out.data_ptr(), b * n_in, tracks, t_use, f, tpb,
         _bn_stride(re), re.stride(2), _bn_stride(im), im.stride(2),
         _bn_stride(mask), mask.stride(2), mask.stride(3),
-        re.device.index if re.device.index is not None else torch.cuda.current_device(),
-        stream.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"masked_istft kernel launch failed: CUDA error {err} "
-                           f"({lib.sag_cuda_error_string(err).decode()})")
+        _device_index(re), stream.cuda_stream)
+    _raise_on(err, lib, "masked_istft")
     launch_count += 1
     return out
+
+
+def _launch_bwd(re, im, mask, g, n_overlap):
+    global bwd_launch_count
+    b, n_in, tracks, t, t_use, f = _check_inputs(re, im, mask, n_overlap)
+    out_len = (t_use // n_overlap) * f - (n_overlap - 1) * (f // n_overlap)
+    _check(g.shape == (b, n_in, tracks, out_len), f"g must be (B, n_in, TR, out_len) = "
+           f"{(b, n_in, tracks, out_len)}, got {tuple(g.shape)}")
+    _check(g.dtype == torch.float32, f"g must be float32, got {g.dtype}")
+    _check(g.is_contiguous(), "g must be contiguous")
+    _check(g.data_ptr() % 16 == 0, "g must be 16-byte aligned")
+    lib = _library()
+    smem = lib.sag_masked_istft_bwd_smem_bytes(t_use)
+    _check(smem <= MAX_SMEM, f"T={t_use} frames need {smem} bytes of shared "
+           f"memory per block, more than {MAX_SMEM}")
+    c, s = basis(f, re.device)
+    d_mask = torch.empty(mask.shape, dtype=mask.dtype, device=re.device)
+    d_re = torch.empty((b, n_in, t, f), dtype=torch.float32, device=re.device)
+    d_im = torch.empty_like(d_re)
+    if t_use != t:   # the dropped trailing frames: zero gradient
+        for x in (d_mask[..., t_use:, :], d_re[..., t_use:, :], d_im[..., t_use:, :]):
+            x.zero_()
+    stream = torch.cuda.current_stream(re.device)
+    err = lib.sag_masked_istft_bwd(
+        g.data_ptr(), re.data_ptr(), im.data_ptr(), mask.data_ptr(),
+        int(mask.dtype == torch.bfloat16), c.data_ptr(), s.data_ptr(),
+        d_mask.data_ptr(), d_re.data_ptr(), d_im.data_ptr(),
+        b * n_in, tracks, t_use, t, f,
+        _bn_stride(re), re.stride(2), _bn_stride(im), im.stride(2),
+        _bn_stride(mask), mask.stride(2), mask.stride(3),
+        _device_index(re), stream.cuda_stream)
+    _raise_on(err, lib, "masked_istft_bwd")
+    bwd_launch_count += 1
+    return d_re, d_im, d_mask
 
 
 def _find_nvcc() -> str:
@@ -151,36 +259,61 @@ def _find_nvcc() -> str:
             return path
     raise RuntimeError("nvcc not found (looked at $CUDA_HOME, $CUDA_PATH, PATH "
                        "and /usr/local/cuda/bin); it is needed to build "
-                       f"{SOURCE.name}")
+                       f"{', '.join(src.name for src in SOURCES)}")
 
 
 def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    tag = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """Where the library for the current sources and flags lives."""
+    tag = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in SOURCES:
+        tag.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"libsag_masked_istft_{tag.hexdigest()[:16]}.so"
 
 
 def build() -> tuple[Path, float, str]:
-    """Compile the kernel library unless it exists.
+    """Compile the kernel library unless it exists: one nvcc per source,
+    all started together, then one link.
 
     Returns (path, build seconds, nvcc's output); seconds is 0.0 and the
-    output empty when the library for this source was already built. The
+    output empty when the library for these sources was already built. The
     output carries ptxas' register, shared-memory and spill report."""
     so = library_path()
     if so.exists():
         return so, 0.0, ""
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    tag = f"{so.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)   # atomic: a concurrent process never loads half a file
-    return so, seconds, proc.stdout + proc.stderr
+    jobs = []
+    for src in SOURCES:
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.STDOUT, text=True)))
+    report = []
+    try:
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            report.append(out)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                                   f"{' '.join(cmd)}\n{out}")
+        tmp = so.with_name(f"{tag}.so.tmp")
+        cmd = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        report.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed with exit code {proc.returncode}:\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, so)   # atomic: a concurrent process never loads half a file
+    finally:
+        for _, obj, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            obj.unlink(missing_ok=True)
+    return so, time.perf_counter() - t0, "".join(report)
 
 
 @functools.lru_cache(maxsize=None)
@@ -196,6 +329,15 @@ def _library() -> ctypes.CDLL:
     lib.sag_masked_istft_fwd.restype = i32
     lib.sag_masked_istft_smem_bytes.argtypes = [i32, i32]
     lib.sag_masked_istft_smem_bytes.restype = i64
+    lib.sag_masked_istft_bwd.argtypes = [
+        ptr, ptr, ptr, ptr, i32, ptr, ptr,          # g re im mask bf16 C S
+        ptr, ptr, ptr,                              # d_mask d_re d_im
+        i32, i32, i32, i32, i32,                    # n_bn tracks T T_total F
+        i64, i64, i64, i64, i64, i64, i64,          # strides
+        i32, ptr]                                   # device, stream
+    lib.sag_masked_istft_bwd.restype = i32
+    lib.sag_masked_istft_bwd_smem_bytes.argtypes = [i32]
+    lib.sag_masked_istft_bwd_smem_bytes.restype = i64
     lib.sag_cuda_error_string.argtypes = [i32]
     lib.sag_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,5 +1,6 @@
-"""The port on a CUDA card: K1 against its plain version, and the reduced
-flagship forward on the card against the same model on the CPU.
+"""The port on a CUDA card: K1 and K2 against their plain versions, and the
+reduced flagship forward and train step on the card against the same model
+on the CPU.
 
 Every test here carries the `cuda` marker and skips without a card. The
 file imports no JAX, so it runs on a card host that has none:
@@ -49,13 +50,51 @@ def test_kernel_matches_plain(b, tracks, t, wind, mask_dtype, tol):
 
 
 @pytest.mark.cuda
-def test_kernel_refuses_inputs_that_need_gradients():
-    """No backward kernel yet: a CUDA call that would need one raises."""
+@pytest.mark.parametrize("b, tracks, t, wind, mask_dtype, tol", [
+    (2, 32, 28, 1024, torch.float32, (5e-4, 1e-4)),     # flagship track count and T
+    (3, 5, 30, 1024, torch.float32, (5e-4, 1e-4)),      # ragged: TR 5, T % 4 == 2
+    (1, 3, 160, 256, torch.float32, (5e-4, 1e-4)),      # T > 128: frames chunked per track
+    (2, 32, 28, 1024, torch.bfloat16, (5e-2, 5e-2)),
+])
+def test_bwd_kernel_matches_plain(b, tracks, t, wind, mask_dtype, tol):
+    """K2 against masked_istft_bwd_plain; tolerances of
+    tests/test_pallas.py:142-159 (f32) and :93-117 (bf16 mask)."""
     _need_card()
-    re = torch.zeros((1, 1, 8, 128), device="cuda", requires_grad=True)
-    mask = torch.zeros((1, 1, 2, 8, 128), device="cuda")
-    with pytest.raises(ValueError, match="no backward"):
-        k1.masked_istft(re, re.detach(), mask)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    re = torch.randn((b, 1, t, wind), generator=gen, device="cuda")
+    im = torch.randn((b, 1, t, wind), generator=gen, device="cuda")
+    mask = torch.rand((b, 1, tracks, t, wind), generator=gen, device="cuda").to(mask_dtype)
+    out_len = (t // 4) * wind - 3 * wind // 4
+    g = torch.randn((b, 1, tracks, out_len), generator=gen, device="cuda")
+    count = k1.bwd_launch_count
+    got = k1.masked_istft_bwd(re, im, mask, g)
+    torch.cuda.synchronize()
+    assert k1.bwd_launch_count == count + 1
+    want = k1.masked_istft_bwd_plain(re, im, mask, g)
+    assert got[2].dtype == mask_dtype
+    for a, w in zip(got, want):
+        torch.testing.assert_close(a.float(), w.float(), atol=tol[0], rtol=tol[1])
+    if t % 4:
+        assert float(got[2][..., (t // 4) * 4:, :].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_autograd_goes_through_both_kernels():
+    """masked_istft on CUDA tensors that need gradients: K1 forward, K2
+    backward, the gradients of the plain version's autograd."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    re = torch.randn((2, 1, 28, 1024), generator=gen, device="cuda")
+    im = torch.randn((2, 1, 28, 1024), generator=gen, device="cuda")
+    mask = torch.rand((2, 1, 4, 28, 1024), generator=gen, device="cuda", requires_grad=True)
+    counts = k1.launch_count, k1.bwd_launch_count
+    out = k1.masked_istft(re, im, mask)
+    w = torch.randn(out.shape, generator=gen, device="cuda")
+    (out * w).sum().backward()
+    assert (k1.launch_count, k1.bwd_launch_count) == (counts[0] + 1, counts[1] + 1)
+    ref = mask.detach().clone().requires_grad_()
+    (k1.masked_istft_plain(re, im, ref) * w).sum().backward()
+    torch.testing.assert_close(mask.grad, ref.grad, atol=5e-4, rtol=1e-4)
 
 
 @pytest.mark.cuda
@@ -80,3 +119,36 @@ def test_reduced_flagship_forward_card_matches_cpu():
     assert got.shape == want.shape == (3, g.snd_dur, 3)
     err = float((got - want).norm() / want.norm())
     assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+def test_reduced_flagship_train_step_card_matches_cpu():
+    """One train step of the reduced flagship (8 tracks, 64x128 frames,
+    batch 3) on the card (K1 and K2) and on the CPU from the same weights:
+    loss and flattened gradient at relative 1e-4."""
+    _need_card()
+    from spatialaudiogen_tpu_torch.train.lr import make_optimizer
+    from spatialaudiogen_tpu_torch.train.state import TrainState
+    from spatialaudiogen_tpu_torch.train.steps import train_step
+
+    cfg = SptAudioGenConfig(sep_num_tracks=8)
+    g = cfg.geometry
+    gen = torch.Generator().manual_seed(3)
+    batch = {"ambix": 0.1 * torch.randn((3, g.snd_size, 4), generator=gen),
+             "audio_mask": torch.ones((3, 4)),
+             "video": torch.randint(0, 256, (3, 1, 64, 128, 3), generator=gen,
+                                    dtype=torch.uint8)}
+    results = {}
+    for dev in ("cpu", "cuda"):
+        model = SptAudioGen(cfg, frame_hw=(64, 128)).init_weights(
+            torch.Generator().manual_seed(0)).to(dev)
+        state = TrainState(model, make_optimizer(model.parameters()))
+        counts = k1.launch_count, k1.bwd_launch_count
+        metrics = train_step(state, {k: v.to(dev) for k, v in batch.items()}, 1e-4)
+        grads = torch.cat([p.grad.flatten().cpu() for p in model.parameters()])
+        results[dev] = float(metrics["total_loss"]), grads
+        if dev == "cuda":
+            assert k1.launch_count == counts[0] + 1 and k1.bwd_launch_count == counts[1] + 1
+    (loss_c, g_c), (loss_g, g_g) = results["cpu"], results["cuda"]
+    assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)
+    assert float((g_g - g_c).norm() / g_c.norm()) <= 1e-4
