@@ -5,33 +5,48 @@
 
 Drives the flagship model (audio + RGB encoders, unet_mask head with 32
 tracks, 224x448 frames, random weights from a seed) through the port's own
-entry points, deploy and training, and fails (non-zero exit) on the first
-phase that goes wrong:
+entry points, deploy and training, in its three configurations (the
+default NCHW U-Net in float32, the NHWC-mask U-Net, bf16 compute), and
+fails (non-zero exit) on the first phase that goes wrong:
 
   1. preconditions: a CUDA card, its name and power limit, torch/CUDA/nvcc;
-  2. build: the kernels (K1, the fused masked comb-ISTFT, and K2, its fused
-     backward) from the checkout's sources, one nvcc per source started
-     together, with nvcc's register/spill report;
-  3. kernels: K1 and K2 against their plain PyTorch versions on the card
-     at the flagship shapes (f32 and bf16 masks) and at a ragged shape,
-     with median times of both (CUDA events) and each one's bound;
+  2. build: the kernels (K1, the fused masked comb-ISTFT; K2, its fused
+     backward; K3, K1 over an NHWC mask) from the checkout's sources, one
+     nvcc per source started together, with nvcc's register/spill report;
+  3. kernels: K1, K2 and K3 against their plain PyTorch versions on the
+     card at the flagship shapes (f32 and bf16 masks; K3's mask the
+     cropped channels_last view the model makes) and at a ragged shape,
+     K3's backward, with median times (CUDA events), each one's bound, and
+     K1 on K3's mask made track-major (the transpose copy included);
   4. deploy: MonoToAmbix.deploy over 2 s of a 4 s clip at batch 16 on the
      card (shape, finiteness, W passthrough bit for bit, K1 launched), and
      the same engine on the CPU over 0.5 s against the card;
-  5. deploy numbers: device-forward realtime factors at batch 32 and 128,
-     and a profile of the batch-128 forward by kernel family;
-  6. train: cli.train for 6 steps at batch 32 over a packed two-clip
+  5. forward numbers: device-forward realtime factors at batch 32 and 128
+     for the NCHW and NHWC layouts in f32 and for bf16, and a profile of
+     each batch-128 forward by kernel family;
+  6. NHWC path: the flagship forward with pallas_nhwc=True against the
+     default one at the same weights (K3 launched once, K1 never), and one
+     flagship train step at batch 32 on it (K3 and K2 launched);
+  7. train: cli.train for 6 steps at batch 32 over a packed two-clip
      dataset (finite losses, K1 and K2 launched on every step, params
      moved), then MonoToAmbix deploys the trained model on the card;
-  7. train card vs CPU: one reduced train step on both, loss and gradient;
-  8. train numbers: train-step time and samples/s at batch 32 and 128, and
-     a profile of one step at each by kernel family (torch.profiler).
+  8. bf16 train: cli.train --bf16 the same way (float32 params, a bf16
+     mask into K1 and K2), then MonoToAmbix(compute_dtype="bfloat16")
+     deploys it, held to the float32 deploy of the same params;
+  9. train card vs CPU: one reduced train step on both, loss and gradient,
+     for the NCHW and the NHWC U-Net;
+ 10. train numbers: train-step time and samples/s at batch 32 and 128 in
+     f32 and bf16, and a profile of one step at each by kernel family
+     (torch.profiler).
 
-The kernel counts are set to 0 just before the deploy run and the train
-run and read just after each. The second-to-last line is a JSON object
-describing the kernels; the last is {"ok": true, "device": {...}}. Without
-a CUDA card the script exits non-zero and prints no result. Scratch files
-go to .chip_smoke/ in the checkout and are removed at the end.
+The kernel counts are set to 0 just before each main-path run (deploy,
+the NHWC forward and train step, the f32 and bf16 trainings) and read just
+after it. The second-to-last line is a JSON object describing the
+kernels (K1's and K2's launches are those of the f32 training, K3's those
+of the NHWC train step, with the NHWC forward's count under
+"forward_launches"); the last is {"ok": true, "device": {...}}. Without a CUDA card the
+script exits non-zero and prints no result. Scratch files go to
+.chip_smoke/ in the checkout and are removed at the end.
 """
 
 from __future__ import annotations
@@ -62,6 +77,7 @@ TRAIN_BATCHES = (32, 128)
 TRAIN_STEPS = 6
 K1_REPLACES = "spatialaudiogen_tpu/ops/pallas_kernels.py:47"
 K2_REPLACES = "spatialaudiogen_tpu/ops/pallas_kernels.py:141"
+K3_REPLACES = "spatialaudiogen_tpu/ops/pallas_kernels.py:333"
 # H100 SXM published peaks (dense): float32 outside the tensor cores, and
 # device-memory bandwidth. The bound is the larger of flops/peak and
 # bytes/bandwidth.
@@ -170,7 +186,8 @@ def kernel_phase(card: str) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED)
     cases = [  # name, (B, n_in, TR, T, F), mask dtype, atol, rtol
         ("flagship f32", (16, 1, 32, 28, 1024), torch.float32, 2e-4, 1e-4),
-        ("flagship bf16 mask", (16, 1, 32, 28, 1024), torch.bfloat16, 2e-2, 2e-2),
+        # both routes read the same bf16 mask values, so f32 limits hold
+        ("flagship bf16 mask", (16, 1, 32, 28, 1024), torch.bfloat16, 2e-4, 1e-4),
         ("ragged f32", (3, 1, 5, 30, 1024), torch.float32, 2e-4, 1e-4),
     ]
     result = {}
@@ -202,14 +219,16 @@ def kernel_phase(card: str) -> dict:
 
 def bwd_kernel_phase(card: str) -> dict:
     """K2 against masked_istft_bwd_plain at the flagship shapes (batch 16)
-    and a ragged shape; tolerances of tests/test_pallas.py:142-159 (f32)
-    and :93-117 (bf16 mask)."""
+    and a ragged shape; tolerances of tests/test_pallas.py:142-159 (f32).
+    With a bf16 mask, d_mask comes back bf16 from both routes, and their
+    float32 sums may round to neighbouring bf16 values (one step is at
+    most 2^-7 relative): rtol 1e-2."""
     from spatialaudiogen_tpu_torch.ops import masked_istft as k
 
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     cases = [  # name, (B, n_in, TR, T, F), mask dtype, atol, rtol
         ("flagship f32", (16, 1, 32, 28, 1024), torch.float32, 5e-4, 1e-4),
-        ("flagship bf16 mask", (16, 1, 32, 28, 1024), torch.bfloat16, 5e-2, 5e-2),
+        ("flagship bf16 mask", (16, 1, 32, 28, 1024), torch.bfloat16, 1e-3, 1e-2),
         ("ragged f32", (3, 1, 5, 30, 1024), torch.float32, 5e-4, 1e-4),
     ]
     result = {}
@@ -244,6 +263,88 @@ def bwd_kernel_phase(card: str) -> dict:
                 raise AssertionError(f"K2 {name} disagrees with its plain version")
             result[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                             "bound_ms": bound_ms, "bound_by": bound_by}
+    return result
+
+
+def nhwc_mask(gen, b, tracks, t, f, dtype, height, start):
+    """The mask as the NHWC model makes it: frames [start, start + t) of a
+    channels_last (B, TR, height, F) deconv output, viewed (B, T, F, TR)."""
+    full = torch.rand((b, tracks, height, f), generator=gen, device=DEVICE)
+    full = full.to(dtype).contiguous(memory_format=torch.channels_last)
+    return full[:, :, start: start + t].permute(0, 2, 3, 1)
+
+
+def nhwc_kernel_phase(card: str) -> dict:
+    """K3 against masked_istft_nhwc_plain at the flagship shapes (batch 16)
+    and a ragged shape (5 tracks: scalar mask loads; T % 4 == 2), forward
+    (f32 and bf16 masks) and backward (f32); tolerances of
+    tests/test_pallas.py's f32 forward for both mask dtypes, since both
+    routes read the same bf16 values."""
+    from spatialaudiogen_tpu_torch.config import SptAudioGenConfig
+    from spatialaudiogen_tpu_torch.models.sptaudiogen import AUDIO_KERNELS, AUDIO_STRIDES
+    from spatialaudiogen_tpu_torch.ops import masked_istft as k
+
+    g = SptAudioGenConfig().geometry
+    (kh, _), (sh, _) = AUDIO_KERNELS[0], AUDIO_STRIDES[0]
+    height = (g.deconv1_in_hi - g.deconv1_in_lo) * sh + kh - sh   # narrowed deconv1 frames
+    flagship = (16, TRACKS, g.n_mask_frames, g.wind_size, height, g.narrowed_deconv_ss)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    cases = [  # name, (B, TR, T, F, deconv frames, crop start), mask dtype, atol, rtol
+        ("flagship f32", flagship, torch.float32, 2e-4, 1e-4),
+        ("flagship bf16 mask", flagship, torch.bfloat16, 2e-4, 1e-4),
+        ("ragged f32", (3, 5, 30, 1024, 36, 2), torch.float32, 2e-4, 1e-4),
+        ("ragged bf16 mask", (3, 5, 30, 1024, 36, 2), torch.bfloat16, 2e-4, 1e-4),
+    ]
+    result = {}
+    for name, shape, dtype, atol, rtol in cases:
+        b, tracks, t, f, height, start = shape
+        re = torch.randn((b, t, f), generator=gen, device=DEVICE)
+        im = torch.randn((b, t, f), generator=gen, device=DEVICE)
+        mask = nhwc_mask(gen, b, tracks, t, f, dtype, height, start)
+        with torch.no_grad():
+            got = k.masked_istft_nhwc(re, im, mask)
+            want = k.masked_istft_nhwc_plain(re, im, mask)
+            torch.cuda.synchronize()
+            if got.shape != want.shape:
+                raise AssertionError(f"K3 {name}: shape {tuple(got.shape)} != "
+                                     f"plain {tuple(want.shape)}")
+            err = float((got - want).abs().max())
+            ok = bool(torch.allclose(got, want, atol=atol, rtol=rtol))
+            ms = time_ms(lambda: k.masked_istft_nhwc(re, im, mask))
+            plain_ms = time_ms(lambda: k.masked_istft_nhwc_plain(re, im, mask))
+            k1_ms = time_ms(lambda: k.masked_istft(
+                re[:, None], im[:, None], mask.permute(0, 3, 1, 2)[:, None].contiguous()))
+        flops, spectra, mask_bytes = istft_work(re[:, None], mask.permute(0, 3, 1, 2)[:, None])
+        bound_ms, bound_by = bound(flops, spectra + mask_bytes + got.numel() * 4)
+        log(f"K3 {name} (B, TR, T, F) {shape[:4]}, mask strides {mask.stride()}: "
+            f"max|kernel - plain| {err:.3e} (atol {atol:g}, rtol {rtol:g}) -> "
+            f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain (cuBLAS) {plain_ms:.3f} ms, "
+            f"K1 on the mask made track-major (copy included) {k1_ms:.3f} ms, bound "
+            f"{bound_ms:.3f} ms by {bound_by} [{card}]")
+        if not ok:
+            raise AssertionError(f"K3 {name} disagrees with its plain version")
+        result[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "k1_ms": k1_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+        if dtype != torch.float32:
+            continue
+        # backward: K2 on the mask made track-major, against plain autograd
+        w = torch.randn(got.shape, generator=gen, device=DEVICE)
+        grads = {}
+        for route, fn in (("kernel", k.masked_istft_nhwc), ("plain", k.masked_istft_nhwc_plain)):
+            args = [x.detach().clone().requires_grad_() for x in (re, im)]
+            args.append(mask.detach().requires_grad_())
+            (fn(*args) * w).sum().backward()
+            grads[route] = [x.grad for x in args]
+        torch.cuda.synchronize()
+        bwd_err = max(float((a - p).abs().max()) for a, p in zip(*grads.values()))
+        bwd_ok = all(torch.allclose(a, p, atol=5e-4, rtol=1e-4) for a, p in zip(*grads.values()))
+        log(f"K3 {name} backward (K2 on the track-major mask) vs plain autograd: max "
+            f"|diff| {bwd_err:.3e} over d_re, d_im, d_mask (atol 5e-4, rtol 1e-4) -> "
+            f"{'ok' if bwd_ok else 'FAIL'}")
+        if not bwd_ok:
+            raise AssertionError(f"K3 {name}: gradients disagree with the plain version's")
+        if t % 4 and float(grads["kernel"][2][:, (t // 4) * 4:].abs().max()) != 0.0:
+            raise AssertionError(f"K3 {name}: dropped frames got a gradient")
     return result
 
 
@@ -365,6 +466,7 @@ def slice_phase(card: str) -> None:
 
 
 KERNEL_FAMILIES = (  # (family, substrings of the kernel name), first match wins
+    ("K3 masked_istft_nhwc (fwd)", ("masked_istft_nhwc",)),
     ("K1 masked_istft (fwd)", ("masked_istft_fwd",)),
     ("K2 masked_istft (bwd)", ("masked_istft_bwd",)),
     ("convolution (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit_", "winograd",
@@ -374,7 +476,7 @@ KERNEL_FAMILIES = (  # (family, substrings of the kernel name), first match wins
     ("optimizer (Adam)", ("multi_tensor", "adam", "Adam")),
     ("reduction", ("reduce", "Reduce")),
     ("copy / layout", ("copy", "Memcpy", "Memset", "cat", "transpose", "pad", "unfold",
-                       "index", "scatter", "gather")),
+                       "index", "scatter", "gather", "nchwToNhwc", "nhwcToNchw")),
     ("elementwise", ("elementwise", "vectorized", "unrolled")),
 )
 
@@ -414,7 +516,19 @@ def profile_step(step_fn, card: str, what: str) -> None:
 # 5. numbers: device-forward realtime factor and its profile
 # ---------------------------------------------------------------------------
 
-def forward_numbers(card: str) -> None:
+FORWARD_CASES = (  # name, SptAudioGenConfig fields
+    ("NCHW f32", {}),
+    ("NHWC f32", {"pallas_nhwc": True}),
+    ("NCHW bf16", {"dtype": torch.bfloat16}),
+    ("NHWC bf16", {"dtype": torch.bfloat16, "pallas_nhwc": True}),
+)
+
+
+def flagship_model(**fields):
+    """The flagship model with the weights chip_smoke wrote to
+    .chip_smoke/model, on the card, in the configuration `fields` sets."""
+    import dataclasses
+
     from spatialaudiogen_tpu_torch.config import TrainConfig
     from spatialaudiogen_tpu_torch.models.convert import load_params
     from spatialaudiogen_tpu_torch.models.sptaudiogen import SptAudioGen
@@ -422,30 +536,98 @@ def forward_numbers(card: str) -> None:
     model_dir = SCRATCH / "model"
     cfg = TrainConfig.load(str(model_dir))
     cfg.sample_dur = 0.1
-    mcfg = cfg.model_config()
-    g = mcfg.geometry
+    mcfg = dataclasses.replace(cfg.model_config(), **fields)
     model = SptAudioGen(mcfg, frame_hw=FRAME_HW)
     model.load_state_dict(load_params(str(model_dir)))
-    model.to(DEVICE).eval()
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
-    for batch in FORWARD_BATCHES:
-        audio = 0.1 * torch.randn((batch, g.snd_size, 1), generator=gen, device=DEVICE)
-        video = torch.rand((batch, g.vid_dur) + FRAME_HW + (3,), generator=gen,
-                           device=DEVICE) - 0.5
-        with torch.no_grad():
-            ms = time_ms(lambda: model(audio, video), warmup=2, iters=10)
-        rtf = batch * g.snd_dur / RATE / (ms / 1e3)
-        log(f"device forward batch {batch} f32: {ms:.2f} ms -> {rtf:.1f}x realtime, "
-            f"{batch / (ms / 1e3):.0f} windows/s [{card}]")
-        if batch == FORWARD_BATCHES[-1]:
+    return model.to(DEVICE)
+
+
+def forward_inputs(gen, batch: int, g):
+    audio = 0.1 * torch.randn((batch, g.snd_size, 1), generator=gen, device=DEVICE)
+    video = torch.rand((batch, g.vid_dur) + FRAME_HW + (3,), generator=gen,
+                       device=DEVICE) - 0.5
+    return audio, video
+
+
+def forward_numbers(card: str) -> None:
+    for name, fields in FORWARD_CASES:
+        model = flagship_model(**fields).eval()
+        g = model.cfg.geometry
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        for batch in FORWARD_BATCHES:
+            audio, video = forward_inputs(gen, batch, g)
             with torch.no_grad():
-                profile_step(lambda: model(audio, video), card, f"device forward batch {batch}")
-        del audio, video
-    torch.cuda.empty_cache()
+                ms = time_ms(lambda: model(audio, video), warmup=2, iters=10)
+            rtf = batch * g.snd_dur / RATE / (ms / 1e3)
+            log(f"device forward batch {batch} {name}: {ms:.2f} ms -> {rtf:.1f}x realtime, "
+                f"{batch / (ms / 1e3):.0f} windows/s [{card}]")
+            if batch == FORWARD_BATCHES[-1]:
+                with torch.no_grad():
+                    profile_step(lambda: model(audio, video), card,
+                                 f"device forward batch {batch} {name}")
+            del audio, video
+        del model
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
-# 6. train: cli.train on the card, then deploy the trained model
+# 6. NHWC path: the flagship forward and a train step with pallas_nhwc=True
+# ---------------------------------------------------------------------------
+
+def nhwc_path_phase(card: str) -> dict:
+    """Returns K3's launches in the NHWC train step and, apart, in the NHWC
+    forward, each counted from 0 just before its run."""
+    from spatialaudiogen_tpu_torch.ops import masked_istft as k
+    from spatialaudiogen_tpu_torch.train.lr import make_optimizer
+    from spatialaudiogen_tpu_torch.train.state import TrainState
+    from spatialaudiogen_tpu_torch.train.steps import train_step
+
+    nchw, nhwc = flagship_model().eval(), flagship_model(pallas_nhwc=True).eval()
+    g = nhwc.cfg.geometry
+    audio, video = forward_inputs(torch.Generator(device=DEVICE).manual_seed(SEED + 5),
+                                  DEPLOY_BATCH, g)
+    taps = {}
+    k.launch_count = k.bwd_launch_count = k.nhwc_launch_count = 0
+    with torch.no_grad():
+        got = nhwc(audio, video, taps=taps)
+    torch.cuda.synchronize()
+    fwd = (k.launch_count, k.nhwc_launch_count)
+    with torch.no_grad():
+        want = nchw(audio, video)
+    err = rel_l2(got.cpu(), want.cpu())
+    mask = taps["mask"]
+    log(f"NHWC forward (flagship, batch {DEPLOY_BATCH}, TF32 off): K1 launches {fwd[0]}, "
+        f"K3 launches {fwd[1]}; mask {tuple(mask.shape)} strides {mask.stride()}; relative "
+        f"L2 to the NCHW forward at the same weights {err:.3e} (limit 1e-5)")
+    if fwd != (0, 1):
+        raise AssertionError(f"the NHWC forward launched K1 {fwd[0]} and K3 {fwd[1]} times")
+    if mask.stride(2) != 1:
+        raise AssertionError(f"the NHWC forward's mask is not channels_last: {mask.stride()}")
+    if not (got.shape == want.shape and torch.isfinite(got).all() and err <= 1e-5):
+        raise AssertionError(f"NHWC and NCHW forwards disagree: relative L2 {err:.3e}")
+    del nchw, audio, video, taps, mask
+
+    batch = TRAIN_BATCHES[0]
+    state = TrainState(nhwc, make_optimizer(nhwc.parameters()))
+    data = synthetic_batch(torch.Generator(device=DEVICE).manual_seed(SEED + 6), batch, g,
+                           FRAME_HW, DEVICE)
+    k.launch_count = k.bwd_launch_count = k.nhwc_launch_count = 0
+    loss = float(train_step(state, data, 1e-4)["total_loss"])
+    step = (k.launch_count, k.bwd_launch_count, k.nhwc_launch_count)
+    log(f"NHWC train step (flagship, batch {batch}): loss {loss:.4f}, K1/K2/K3 launches "
+        f"{step[0]}/{step[1]}/{step[2]}")
+    if step != (0, 1, 1) or not np.isfinite(loss):
+        raise AssertionError(f"NHWC train step: loss {loss}, K1/K2/K3 launches {step}")
+    ms = time_ms(lambda: train_step(state, data, 1e-4), warmup=2, iters=5)
+    log(f"train step batch {batch} NHWC f32: {ms:.2f} ms -> {batch / (ms / 1e3):.1f} "
+        f"samples/s [{card}]")
+    del state, data, nhwc
+    torch.cuda.empty_cache()
+    return {"launches": step[2], "forward_launches": fwd[1]}
+
+
+# ---------------------------------------------------------------------------
+# 7. train: cli.train on the card, then deploy the trained model
 # ---------------------------------------------------------------------------
 
 def write_train_db(db: Path) -> None:
@@ -460,40 +642,49 @@ def write_train_db(db: Path) -> None:
                                  f"would be gated out by the feeder")
 
 
-def train_phase(card: str) -> dict:
+def cli_train_run(db: Path, model_dir: Path, *flags: str):
+    """cli.train for TRAIN_STEPS steps at batch 32 on the card, with the
+    kernel counts set to 0 just before and read just after. Returns
+    (train state, (K1, K2, K3 launches), losses)."""
     from spatialaudiogen_tpu_torch.cli import train as cli_train
-    from spatialaudiogen_tpu_torch.config import TrainConfig
-    from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix
-    from spatialaudiogen_tpu_torch.models.convert import load_params
     from spatialaudiogen_tpu_torch.ops import masked_istft as k
-    from spatialaudiogen_tpu_torch.train.state import create_train_state
 
-    db, model_dir = SCRATCH / "train_db", SCRATCH / "trained"
-    write_train_db(db)
     batch = TRAIN_BATCHES[0]
     argv = [str(db), str(model_dir), "--encoders", "audio", "video",
             "--batch_size", str(batch), "--n_iters", str(TRAIN_STEPS),
             "--log_every", "1", "--ckpt_every", "0", "--n_workers", "4",
-            "--seed", str(SEED), "--device", DEVICE]
+            "--seed", str(SEED), "--device", DEVICE, *flags]
     log(f"train: cli.train {' '.join(argv[2:])}")
-    k.launch_count = k.bwd_launch_count = 0
+    k.launch_count = k.bwd_launch_count = k.nhwc_launch_count = 0
     t0 = time.perf_counter()
-    _, steps = cli_train.main(argv)
+    state, steps = cli_train.main(argv)
     wall = time.perf_counter() - t0
-    launches, bwd_launches = k.launch_count, k.bwd_launch_count
+    launches = (k.launch_count, k.bwd_launch_count, k.nhwc_launch_count)
     recs = [json.loads(line) for line in
             (model_dir / "metrics.jsonl").read_text().splitlines()]
     losses = [r["total_loss"] for r in recs]
-    log(f"train (card, batch {batch}): {steps} steps in {wall:.1f} s wall (first steps "
-        f"included), K1 launches {launches}, K2 launches {bwd_launches}, losses "
-        f"{[round(x, 3) for x in losses]}")
+    log(f"train (card, batch {batch}{' ' if flags else ''}{' '.join(flags)}): {steps} steps "
+        f"in {wall:.1f} s wall (first steps included), K1/K2/K3 launches "
+        f"{launches[0]}/{launches[1]}/{launches[2]}, losses {[round(x, 3) for x in losses]}")
     if steps != TRAIN_STEPS or [r["step"] for r in recs] != list(range(TRAIN_STEPS)):
         raise AssertionError(f"train ran {steps} steps, logged {[r['step'] for r in recs]}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train losses not finite: {losses}")
-    if launches < TRAIN_STEPS or bwd_launches < TRAIN_STEPS:
-        raise AssertionError(f"K1/K2 launched {launches}/{bwd_launches} times in "
-                             f"{TRAIN_STEPS} train steps")
+    if min(launches[:2]) < TRAIN_STEPS or launches[2]:
+        raise AssertionError(f"K1/K2/K3 launched {launches} times in {TRAIN_STEPS} "
+                             f"train steps")
+    return state, launches, losses
+
+
+def train_phase(card: str) -> dict:
+    from spatialaudiogen_tpu_torch.config import TrainConfig
+    from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix
+    from spatialaudiogen_tpu_torch.models.convert import load_params
+    from spatialaudiogen_tpu_torch.train.state import create_train_state
+
+    db, model_dir = SCRATCH / "train_db", SCRATCH / "trained"
+    write_train_db(db)
+    _, launches, _ = cli_train_run(db, model_dir)
     init = create_train_state(TrainConfig.load(str(model_dir)), "cpu", seed=SEED)
     trained = load_params(str(model_dir))
     moved = [name for name, v in init.model.state_dict().items()
@@ -509,11 +700,61 @@ def train_phase(card: str) -> dict:
                              f"finite {np.isfinite(ambi).all()}")
     log(f"deploy of the trained model (card): shape {ambi.shape}, finite, "
         f"max |pred| {float(np.abs(ambi[:, 1:]).max()):.4f}")
-    return {"launches": launches, "bwd_launches": bwd_launches}
+    return {"launches": launches[0], "bwd_launches": launches[1]}
 
 
 # ---------------------------------------------------------------------------
-# 7. train step, card against CPU
+# 8. bf16 train: cli.train --bf16, then a bf16 deploy of the result
+# ---------------------------------------------------------------------------
+
+def bf16_train_phase(card: str) -> None:
+    from spatialaudiogen_tpu_torch.config import TrainConfig
+    from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix
+    from spatialaudiogen_tpu_torch.models.convert import load_params
+
+    db, model_dir = SCRATCH / "train_db", SCRATCH / "trained_bf16"
+    state, _, _ = cli_train_run(db, model_dir, "--bf16")
+    model = state.model
+    if model.cfg.dtype != torch.bfloat16:
+        raise AssertionError(f"--bf16 trained a model of dtype {model.cfg.dtype}")
+    params = load_params(str(model_dir))
+    if not all(p.dtype == torch.float32 for p in model.parameters()) or not all(
+            v.dtype == torch.float32 for v in params.values()):
+        raise AssertionError("--bf16 training left a parameter that is not float32")
+    if TrainConfig.load(str(model_dir)).compute_dtype != "bfloat16":
+        raise AssertionError("train-params.json does not record compute_dtype bfloat16")
+    # the mask the trained model hands K1 (and K2 in the backward) is bf16
+    taps = {}
+    audio, video = forward_inputs(torch.Generator(device=DEVICE).manual_seed(SEED + 7), 2,
+                                  model.cfg.geometry)
+    with torch.no_grad():
+        model(audio, video, taps=taps)
+    if taps["mask"].dtype != torch.bfloat16:
+        raise AssertionError(f"the bf16 model's mask is {taps['mask'].dtype}")
+    log(f"bf16 train: params float32 (state and params.npz), mask into K1/K2 "
+        f"{taps['mask'].dtype}")
+    del state, model, audio, video, taps
+
+    ambi = {}
+    for dtype in ("bfloat16", "float32"):
+        engine = MonoToAmbix(str(model_dir), batch_size=DEPLOY_BATCH, device=DEVICE,
+                             compute_dtype=dtype, f16_fetch=False)
+        ambi[dtype] = engine.deploy(str(db / "clip0"), deploy_start=DEPLOY_START,
+                                    deploy_duration=1.0)
+    a16, a32 = ambi["bfloat16"], ambi["float32"]
+    err = rel_l2(a16[:, 1:], a32[:, 1:])
+    # at least 1e-3: float32 products with only the mask rounded to bf16
+    # would come far closer to the float32 deploy
+    log(f"bf16 deploy of the bf16-trained model (card): shape {a16.shape}, relative L2 "
+        f"to the float32 deploy of the same params {err:.3e} (limits 1e-3 to 0.1)")
+    if a16.shape != (RATE, 4) or not np.isfinite(a16).all():
+        raise AssertionError(f"bf16 deploy: shape {a16.shape}, finite {np.isfinite(a16).all()}")
+    if not np.array_equal(a16[:, 0], a32[:, 0]) or not 1e-3 <= err <= 0.1:
+        raise AssertionError(f"bf16 and float32 deploys disagree: relative L2 {err:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# 9. train step, card against CPU
 # ---------------------------------------------------------------------------
 
 def synthetic_batch(gen, batch: int, g, frame_hw, device) -> dict:
@@ -524,16 +765,19 @@ def synthetic_batch(gen, batch: int, g, frame_hw, device) -> dict:
                                    generator=gen, device=device, dtype=torch.uint8)}
 
 
-def train_card_vs_cpu(card: str) -> None:
-    """Reduced flagship (8 tracks, 64x128 frames, batch 3), same weights and
-    batch: loss and flattened gradient, relative, limit 1e-4."""
+def train_card_vs_cpu(card: str, **fields) -> None:
+    """Reduced flagship (8 tracks, 64x128 frames, batch 3) in the
+    configuration `fields` sets, same weights and batch: loss and
+    flattened gradient, relative, limit 1e-4."""
     from spatialaudiogen_tpu_torch.config import SptAudioGenConfig
     from spatialaudiogen_tpu_torch.models.sptaudiogen import SptAudioGen
+    from spatialaudiogen_tpu_torch.ops import masked_istft as k
     from spatialaudiogen_tpu_torch.train.lr import make_optimizer
     from spatialaudiogen_tpu_torch.train.state import TrainState
     from spatialaudiogen_tpu_torch.train.steps import train_step
 
-    cfg = SptAudioGenConfig(sep_num_tracks=8)
+    cfg = SptAudioGenConfig(sep_num_tracks=8, **fields)
+    layout = "NHWC" if cfg.pallas_nhwc else "NCHW"
     batch = synthetic_batch(torch.Generator().manual_seed(SEED + 3), 3, cfg.geometry,
                             (64, 128), "cpu")
     result = {}
@@ -541,21 +785,26 @@ def train_card_vs_cpu(card: str) -> None:
         model = SptAudioGen(cfg, frame_hw=(64, 128)).init_weights(
             torch.Generator().manual_seed(SEED)).to(dev)
         state = TrainState(model, make_optimizer(model.parameters()))
-        metrics = train_step(state, {k: v.to(dev) for k, v in batch.items()}, 1e-4)
+        counts = k.launch_count, k.nhwc_launch_count
+        metrics = train_step(state, {n: v.to(dev) for n, v in batch.items()}, 1e-4)
         grad = torch.cat([p.grad.flatten().double().cpu() for p in model.parameters()])
         result[dev] = float(metrics["total_loss"]), grad
+        launched = (k.launch_count - counts[0], k.nhwc_launch_count - counts[1])
+    if launched != ((0, 1) if cfg.pallas_nhwc else (1, 0)):
+        raise AssertionError(f"the {layout} train step on the card launched K1/K3 "
+                             f"{launched[0]}/{launched[1]} times")
     (loss_c, g_c), (loss_g, g_g) = result["cpu"], result[DEVICE]
     loss_err = abs(loss_g - loss_c) / abs(loss_c)
     grad_err = float((g_g - g_c).norm() / g_c.norm())
-    log(f"train step card vs CPU (reduced flagship, TF32 off): loss {loss_g:.6f} vs "
-        f"{loss_c:.6f} (relative {loss_err:.2e}), gradient relative L2 {grad_err:.2e} "
-        f"(limit 1e-4)")
+    log(f"train step card vs CPU (reduced flagship, {layout} U-Net, TF32 off): loss "
+        f"{loss_g:.6f} vs {loss_c:.6f} (relative {loss_err:.2e}), gradient relative L2 "
+        f"{grad_err:.2e} (limit 1e-4)")
     if not (loss_err <= 1e-4 and grad_err <= 1e-4):
         raise AssertionError("card and CPU train steps disagree")
 
 
 # ---------------------------------------------------------------------------
-# 8. train numbers: step time, samples/s, and a profile by kernel family
+# 10. train numbers: step time, samples/s, and a profile by kernel family
 # ---------------------------------------------------------------------------
 
 def train_numbers(card: str) -> None:
@@ -563,10 +812,11 @@ def train_numbers(card: str) -> None:
     from spatialaudiogen_tpu_torch.train.state import create_train_state
     from spatialaudiogen_tpu_torch.train.steps import train_step
 
-    cfg = TrainConfig(encoders=("audio", "video"), frame_hw=FRAME_HW, seed=SEED)
-    g = cfg.model_config().geometry
-    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
-    for batch in TRAIN_BATCHES:
+    for dtype, batch in ((d, b) for d in ("float32", "bfloat16") for b in TRAIN_BATCHES):
+        cfg = TrainConfig(encoders=("audio", "video"), frame_hw=FRAME_HW, seed=SEED,
+                          compute_dtype=dtype)
+        g = cfg.model_config().geometry
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
         state = create_train_state(cfg, DEVICE)
         data = synthetic_batch(gen, batch, g, FRAME_HW, DEVICE)
 
@@ -576,9 +826,9 @@ def train_numbers(card: str) -> None:
         torch.cuda.reset_peak_memory_stats()
         ms = time_ms(step, warmup=2, iters=5)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        log(f"train step batch {batch} f32: {ms:.2f} ms -> {batch / (ms / 1e3):.1f} "
+        log(f"train step batch {batch} {dtype}: {ms:.2f} ms -> {batch / (ms / 1e3):.1f} "
             f"samples/s, peak memory {peak_gb:.1f} GB [{card}]")
-        profile_step(step, card, f"train step batch {batch}")
+        profile_step(step, card, f"train step batch {batch} {dtype}")
         del state, data
         torch.cuda.empty_cache()
 
@@ -591,29 +841,35 @@ def main() -> int:
         build_kernels()
         k1_times = kernel_phase(card)
         k2_times = bwd_kernel_phase(card)
+        k3_times = nhwc_kernel_phase(card)
         slice_phase(card)
         forward_numbers(card)
+        k3 = nhwc_path_phase(card)
         train = train_phase(card)
+        bf16_train_phase(card)
         train_card_vs_cpu(card)
+        train_card_vs_cpu(card, pallas_nhwc=True)
         train_numbers(card)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     kernels = []
     for name, source, replaces, times, launches in (
-            ("masked_istft", "masked_istft.cu", K1_REPLACES, k1_times, train["launches"]),
+            ("masked_istft", "masked_istft.cu", K1_REPLACES, k1_times,
+             {"launches": train["launches"]}),
             ("masked_istft_bwd", "masked_istft_bwd.cu", K2_REPLACES, k2_times,
-             train["bwd_launches"])):
+             {"launches": train["bwd_launches"]}),
+            ("masked_istft_nhwc", "masked_istft_nhwc.cu", K3_REPLACES, k3_times, k3)):
         flagship = times["flagship f32"]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"spatialaudiogen_tpu_torch/ops/csrc/{source}",
-            "replaces": replaces, "launches": launches,
+            "replaces": replaces, **launches,
             "max_abs_err": flagship["max_abs_err"], "ms": flagship["ms"],
             "plain_ms": flagship["plain_ms"], "bound_ms": flagship["bound_ms"],
             "bound_by": flagship["bound_by"],
-            # the plain version is cuBLAS matmuls plus elementwise ops: no
-            # single library call computes the fused function
-            "library_ms": flagship["plain_ms"]})
+            # no single library call computes the fused function (the
+            # plain version is cuBLAS matmuls plus elementwise ops)
+            "library_ms": None})
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "spatialaudiogen_tpu"))
     if imported:

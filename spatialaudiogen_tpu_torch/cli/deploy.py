@@ -24,9 +24,8 @@ def parse_arguments(argv=None):
     parser.add_argument("--output_fn", default="output")
     parser.add_argument("--save_ambix", action="store_true")
     parser.add_argument("--batch_size", default=32, type=int)
-    parser.add_argument("--compute_dtype", default=None, choices=["float32"],
-                        help="Override the training compute dtype (the port "
-                             "runs float32 only so far).")
+    parser.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
+                        help="Override the training compute dtype.")
     parser.add_argument("--crossfade", action="store_true",
                         help="Hann-blend half-offset passes at window seams.")
     parser.add_argument("--rgb_frames", action="store_true",

@@ -6,7 +6,7 @@
 
 Flags that select paths not ported yet raise NotImplementedError naming
 their ROADMAP.md item: `flow` among --encoders (so the default encoder list
-raises: pass --encoders audio video), --bf16, --n_data/--n_model > 1,
+raises: pass --encoders audio video), --n_data/--n_model > 1,
 --coordinator/--n_processes/--process_id, --tb_histograms and
 --pretrained_resnet.
 """
@@ -69,7 +69,8 @@ def parse_arguments(argv=None):
     parser.add_argument("--process_id", type=int, default=None,
                         help="this process's rank (not ported yet)")
     parser.add_argument("--bf16", action="store_true",
-                        help="run the conv/FC stacks in bfloat16 (not ported yet)")
+                        help="run the conv/FC stacks in bfloat16 with float32 "
+                             "master weights (compute_dtype=bfloat16)")
     parser.add_argument("--pretrained_resnet", default=None,
                         help="resnet18.npy applied to each visual encoder at "
                              "train start (not ported yet)")
@@ -87,8 +88,6 @@ def refuse_unported(args) -> None:
     if "flow" in args.encoders:
         raise NotImplementedError(f"the flow encoder {later} 15 (pass "
                                   f"--encoders audio video)")
-    if args.bf16:
-        raise NotImplementedError(f"--bf16 (bf16 autocast) {later} 5")
     if args.n_model > 1 or (args.n_data or 1) > 1:
         raise NotImplementedError(f"--n_data/--n_model > 1 (multi-device) {later} 14")
     if any(v is not None for v in (args.coordinator, args.n_processes, args.process_id)):
@@ -126,7 +125,8 @@ def main(argv=None):
         ckpt_every=args.ckpt_every, seed=args.seed,
         tb_histograms=args.tb_histograms, tb_activations=args.tb_activations,
         frame_hw=tuple(args.frame_hw), n_data=args.n_data, n_model=args.n_model,
-        compute_dtype="float32", pretrained_resnet=args.pretrained_resnet)
+        compute_dtype="bfloat16" if args.bf16 else "float32",
+        pretrained_resnet=args.pretrained_resnet)
 
     print("=" * 30 + " ARGUMENTS " + "=" * 30)
     for k, v in vars(args).items():

@@ -5,7 +5,9 @@ spatialaudiogen_tpu.models.sptaudiogen.SptAudioGenConfig).
 `train-params.json` (or the reference's `train-params.txt`) in a model dir
 is read and written with the same rules as the JAX package
 (`TrainConfig.save/load`, `_parse_txt`, `_coerce`), so model dirs move
-between the two packages. Only float32 compute is supported so far.
+between the two packages. `compute_dtype="bfloat16"` runs the conv, deconv
+and FC products in bfloat16 with float32 parameters, as the JAX package's
+`dtype=jnp.bfloat16` does.
 """
 
 from __future__ import annotations
@@ -15,11 +17,14 @@ import json
 import os
 from typing import Any
 
+import torch
+
 from spatialaudiogen_tpu_torch.dsp.geometry import ModelGeometry
 
 AUDIO, VIDEO, FLOW = "audio", "video", "flow"
 ENCODERS = (AUDIO, VIDEO, FLOW)
 NO_SEPARATION, FREQ_MASK = "none", "unet_mask"
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,9 +42,21 @@ class SptAudioGenConfig:
     # "highest": float32 everywhere, TF32 off for matmuls and convolutions;
     # "default": TF32 allowed (the counterpart of one bf16 MXU pass).
     dft_precision: str = "highest"
-    # Accepted for config parity; the CUDA kernel runs FP32 FFMA for both
+    # Accepted for config parity; the CUDA kernels run FP32 FFMA for both
     # values (exact for "highest", more than enough for "default").
     pallas_precision: str = "default"
+    # No use_pallas field: the masked ISTFT routes by device, CUDA tensors
+    # through the fused kernels and CPU tensors through their plain
+    # versions (the JAX package's "auto").
+    # Mono input: the separation U-Net runs channels_last, so its last
+    # deconv emits the mask as (B, T, F, tracks), and K3 reads that crop in
+    # place (masked_istft_nhwc).
+    pallas_nhwc: bool = False
+    # Compute dtype of the conv, deconv and FC products (None = float32,
+    # or torch.bfloat16): params stay float32, BatchNorm statistics, the
+    # sigmoid, the DFTs and the decode run in float32, the mask is stored
+    # in this dtype.
+    dtype: Any = None
     # Reference quirk: visual-encoder BN uses batch statistics at eval too
     # (model.py:388,396).
     bn_batch_stats: bool = True
@@ -53,6 +70,8 @@ class SptAudioGenConfig:
             if getattr(self, name) not in ("highest", "default"):
                 raise ValueError(f"{name} must be 'highest' or 'default', "
                                  f"got {getattr(self, name)!r}")
+        if self.dtype not in COMPUTE_DTYPES.values():
+            raise ValueError(f"dtype must be None or torch.bfloat16, got {self.dtype!r}")
         if set(self.encoders) & {VIDEO, FLOW}:
             vid_dur = self.sample_duration * self.video_rate
             if not (abs(vid_dur - round(vid_dur)) < 1e-6 and round(vid_dur) >= 1):
@@ -73,8 +92,8 @@ class SptAudioGenConfig:
 @dataclasses.dataclass
 class TrainConfig:
     """The fields of spatialaudiogen_tpu.config.TrainConfig, with its
-    defaults. Some fields select paths that are not ported yet (bf16,
-    multi-device, TensorBoard histograms, pretrained ResNet weights);
+    defaults. Some fields select paths that are not ported yet
+    (multi-device, TensorBoard histograms, pretrained ResNet weights);
     cli.train refuses those values."""
 
     db_dir: str = ""
@@ -115,11 +134,11 @@ class TrainConfig:
     pretrained_resnet: str | None = None
 
     def model_config(self) -> SptAudioGenConfig:
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r}: the PyTorch port runs "
-                f"float32 only so far (bf16 autocast is queued in ROADMAP.md)")
+        if self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {sorted(COMPUTE_DTYPES)}, "
+                             f"got {self.compute_dtype!r}")
         return SptAudioGenConfig(
+            dtype=COMPUTE_DTYPES[self.compute_dtype],
             ambi_order=self.ambi_order,
             audio_rate=self.audio_rate,
             video_rate=self.video_rate,

@@ -14,7 +14,11 @@ Tensors are NCHW; the conventions that matter for parity:
   * BatchNorm has eps 1e-3 and normalises with the biased batch variance
     when running on batch statistics; in a train step it updates its
     running averages with Flax's momentum 0.99 and the biased variance;
-  * `l2_regularization` is TF's l2_regularizer sum over kernels only.
+  * `l2_regularization` is TF's l2_regularizer sum over kernels only;
+  * `dtype` is Flax's: None computes in the input's dtype, torch.bfloat16
+    casts the input, kernel and bias to bfloat16 for the product while the
+    parameters stay float32; BatchNorm takes its statistics and normalises
+    in float32 and returns its input's dtype (layers.py:51-90).
 """
 
 from __future__ import annotations
@@ -27,6 +31,16 @@ from torch import nn
 
 # Standard deviation of a unit normal truncated at +-2
 TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+def cast(x: torch.Tensor | None, dtype: torch.dtype | None) -> torch.Tensor | None:
+    """x in the compute dtype: unchanged when dtype is None."""
+    return x if dtype is None or x is None else x.to(dtype)
+
+
+def at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """bfloat16 widened to float32; float32 and float64 unchanged."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 def same_pads(size: int, k: int, s: int) -> tuple[int, int]:
@@ -54,13 +68,16 @@ class Dense(nn.Module):
     """fully_connected parity: matmul over the last axis, any input rank."""
 
     def __init__(self, in_features: int, features: int,
-                 activation: Callable | None = None, use_bias: bool = True):
+                 activation: Callable | None = None, use_bias: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.dense = nn.Linear(in_features, features, bias=use_bias)
         self.activation = activation
+        self.dtype = dtype
 
     def forward(self, x):
-        y = self.dense(x)
+        d = self.dtype
+        y = F.linear(cast(x, d), cast(self.dense.weight, d), cast(self.dense.bias, d))
         return self.activation(y) if self.activation else y
 
 
@@ -75,7 +92,8 @@ class BatchNorm(nn.Module):
     collection is mutable (layers.py:78-90): ra = m*ra + (1-m)*batch with
     m = 0.99 and the biased variance. (F.batch_norm's own update stores the
     unbiased variance and takes the complementary momentum, so it is not
-    used.)
+    used.) A bfloat16 input is normalised with float32 statistics and
+    parameters and comes back bfloat16, as the Flax module's does.
     """
 
     def __init__(self, features: int, epsilon: float = 1e-3, momentum: float = 0.99):
@@ -92,7 +110,8 @@ class BatchNorm(nn.Module):
             if not batch_stats:
                 raise ValueError("running averages update from batch statistics")
             with torch.no_grad():
-                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+                var, mean = torch.var_mean(at_least_float32(x), dim=(0, 2, 3),
+                                           correction=0)
                 self.mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
                 self.var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
         if batch_stats:
@@ -110,7 +129,7 @@ class Conv2D(nn.Module):
     def __init__(self, in_channels: int, features: int, kernel_size: Sequence[int],
                  strides: Sequence[int] = (1, 1), padding: str = "VALID",
                  use_bias: bool = True, use_batch_norm: bool = False,
-                 activation: Callable | None = None):
+                 activation: Callable | None = None, dtype: torch.dtype | None = None):
         super().__init__()
         assert padding in ("VALID", "SAME"), padding
         self.kernel_size = tuple(kernel_size)
@@ -120,11 +139,14 @@ class Conv2D(nn.Module):
                               bias=use_bias and not use_batch_norm)
         self.bn = BatchNorm(features) if use_batch_norm else None
         self.activation = activation
+        self.dtype = dtype
 
     def forward(self, x, batch_stats: bool = True, update_stats: bool = False):
         if self.padding == "SAME":
             x = pad_same(x, self.kernel_size, self.strides)
-        y = self.conv(x)
+        d = self.dtype
+        y = F.conv2d(cast(x, d), cast(self.conv.weight, d), cast(self.conv.bias, d),
+                     self.strides)
         if self.bn is not None:
             y = self.bn(y, batch_stats, update_stats)
         return self.activation(y) if self.activation else y
@@ -135,15 +157,19 @@ class Deconv2D(nn.Module):
 
     def __init__(self, in_channels: int, features: int, kernel_size: Sequence[int],
                  strides: Sequence[int] = (1, 1), use_bias: bool = True,
-                 activation: Callable | None = None):
+                 activation: Callable | None = None, dtype: torch.dtype | None = None):
         super().__init__()
         k, s = tuple(kernel_size), tuple(strides)
         assert k[0] >= s[0] and k[1] >= s[1], (k, s)
+        self.strides = s
         self.deconv = nn.ConvTranspose2d(in_channels, features, k, s, bias=use_bias)
         self.activation = activation
+        self.dtype = dtype
 
     def forward(self, x):
-        y = self.deconv(x)
+        d = self.dtype
+        y = F.conv_transpose2d(cast(x, d), cast(self.deconv.weight, d),
+                               cast(self.deconv.bias, d), self.strides)
         return self.activation(y) if self.activation else y
 
 

@@ -10,6 +10,13 @@ connected layers consume NHWC-flattened features, as the JAX model's do,
 so the same weights line up. All crop indices come from
 dsp.geometry.ModelGeometry.
 
+`cfg.pallas_nhwc` (mono input) runs the separation U-Net channels_last
+instead: its last deconv then yields the mask as
+(B, T, F, tracks) in memory, and K3 reads that crop in place. `cfg.dtype`
+(torch.bfloat16) runs the conv, deconv and FC products in bfloat16 with
+float32 params; the STFT, the sigmoid, the masked ISTFT and the decode stay
+float32, and the mask is stored bfloat16, as in the JAX model.
+
 Tensor trace at defaults (audio+video, unet_mask, order 1, batch B):
   audio (B, 52799, 1) -> stft frames [46:173) -> mag (B, 1, 127, 1024)
   conv stack -> (B,32,31,127)(B,64,15,31)(B,128,7,14)(B,256,5,10)(B,512,3,6)
@@ -32,10 +39,17 @@ from spatialaudiogen_tpu_torch.config import (
     VIDEO,
     SptAudioGenConfig,
 )
-from spatialaudiogen_tpu_torch.models.layers import Conv2D, Deconv2D, Dense, init_weights
+from spatialaudiogen_tpu_torch.models.layers import (
+    Conv2D,
+    Deconv2D,
+    Dense,
+    at_least_float32,
+    cast,
+    init_weights,
+)
 from spatialaudiogen_tpu_torch.models.resnet import FILTERS, ResNet18
 from spatialaudiogen_tpu_torch.ops.dft import stft_real
-from spatialaudiogen_tpu_torch.ops.masked_istft import masked_istft
+from spatialaudiogen_tpu_torch.ops.masked_istft import masked_istft, masked_istft_nhwc
 
 # Audio U-Net architecture constants (model.py:162-164).
 AUDIO_FILTERS = (32, 64, 128, 256, 512)
@@ -78,12 +92,12 @@ def visual_feature_hw(frame_hw) -> tuple[int, int]:
 class AudioEncoder(nn.Module):
     """5-layer VALID conv stack over |STFT| (model.py:161-187)."""
 
-    def __init__(self, n_in: int):
+    def __init__(self, n_in: int, dtype=None):
         super().__init__()
         chans = (n_in,) + AUDIO_FILTERS
         for i, (k, s) in enumerate(zip(AUDIO_KERNELS, AUDIO_STRIDES)):
             self.add_module(f"conv{i + 1}", Conv2D(chans[i], chans[i + 1], k, s,
-                                                   activation=F.relu))
+                                                   activation=F.relu, dtype=dtype))
 
     def forward(self, mag):
         acts = [mag]
@@ -102,11 +116,12 @@ class Bottleneck(nn.Module):
         self.visual = [k for k in (VIDEO, FLOW) if k in cfg.encoders]
         self.vid_t = cfg.geometry.vid_dur
         t, f = audio_feature_hw(cfg)
-        self.add_module(f"{AUDIO}-fc", Dense(f * AUDIO_FILTERS[-1], 1024, F.relu))
+        d = cfg.dtype
+        self.add_module(f"{AUDIO}-fc", Dense(f * AUDIO_FILTERS[-1], 1024, F.relu, dtype=d))
         h, w = visual_feature_hw(frame_hw)
         for k in self.visual:
-            self.add_module(f"{k}-fc-red", Dense(FILTERS[-1], 128, F.relu))
-            self.add_module(f"{k}-fc", Dense(self.vid_t * h * w * 128, 512, F.relu))
+            self.add_module(f"{k}-fc-red", Dense(FILTERS[-1], 128, F.relu, dtype=d))
+            self.add_module(f"{k}-fc", Dense(self.vid_t * h * w * 128, 512, F.relu, dtype=d))
         self.out_features = 1024 + 512 * len(self.visual)
 
     def forward(self, enc: dict):
@@ -133,10 +148,11 @@ class LocalizationHead(nn.Module):
         self.shape = (g.num_out_channels, g.num_in_channels, cfg.num_tracks + 1)
         units = (in_features,) + tuple(cfg.loc_fc_units)
         for i in range(len(cfg.loc_fc_units)):
-            self.add_module(f"fc{i + 1}", Dense(units[i], units[i + 1], F.relu))
+            self.add_module(f"fc{i + 1}", Dense(units[i], units[i + 1], F.relu,
+                                                dtype=cfg.dtype))
         self.output_layer = f"fc{len(cfg.loc_fc_units) + 1}"
         n_out = self.shape[0] * self.shape[1] * self.shape[2]
-        self.add_module(self.output_layer, Dense(units[-1], n_out))
+        self.add_module(self.output_layer, Dense(units[-1], n_out, dtype=cfg.dtype))
 
     def forward(self, x):
         for layer in self.children():
@@ -153,13 +169,16 @@ class SeparationUNet(nn.Module):
         super().__init__()
         self.cfg = cfg
         g = cfg.geometry
-        self.add_module("fc-feats", Dense(in_features, AUDIO_FILTERS[-1], F.relu))
+        # the JAX model's NHWC-mask branch (sptaudiogen.py:276-287)
+        self.nhwc = cfg.pallas_nhwc and g.num_in_channels == 1
+        self.add_module("fc-feats", Dense(in_features, AUDIO_FILTERS[-1], F.relu,
+                                          dtype=cfg.dtype))
         out_filters = (cfg.sep_num_tracks * g.num_in_channels,) + AUDIO_FILTERS[:-1]
         for layer in range(len(AUDIO_FILTERS)):
             # input = relu(previous deconv) ++ the encoder activation of that size
             self.add_module(f"deconv{layer + 1}", Deconv2D(
                 2 * AUDIO_FILTERS[layer], out_filters[layer], AUDIO_KERNELS[layer],
-                AUDIO_STRIDES[layer]))
+                AUDIO_STRIDES[layer], dtype=cfg.dtype))
 
     def forward(self, feats, audio_acts, stft_re, stft_im, taps=None):
         cfg, g = self.cfg, self.cfg.geometry
@@ -168,6 +187,12 @@ class SeparationUNet(nn.Module):
         # audio features first, then the fused features tiled over frequency
         x = x.transpose(1, 2)[..., None].expand(-1, -1, -1, enc.shape[3])
         x = torch.cat([enc, x], dim=1)
+        if self.nhwc:
+            # channels_last from here on, so every deconv, deconv1's mask
+            # included, is laid out (B, H, W, C) in memory
+            x = x.contiguous(memory_format=torch.channels_last)
+            audio_acts = [a.contiguous(memory_format=torch.channels_last)
+                          for a in audio_acts]
         for layer in reversed(range(len(AUDIO_FILTERS))):
             if layer == 0:
                 # only deconv1 frames [deconv_ss, deconv_tt) survive the mask
@@ -178,13 +203,21 @@ class SeparationUNet(nn.Module):
                 break
             x = torch.cat([F.relu(x), audio_acts[layer]], dim=1)
 
-        # (B, n_in*tracks, T', F) -> mask frames -> (B, n_in, tracks, T, F):
-        # channel = in*tracks + track, as the JAX model's reshape
-        mask = torch.sigmoid(x)[:, :, g.narrowed_deconv_ss:
-                                g.narrowed_deconv_ss + g.n_mask_frames]
-        mask = mask.unflatten(1, (g.num_in_channels, cfg.sep_num_tracks))
+        # sigmoid in float32, the mask stored in the compute dtype
+        # (sptaudiogen.py:262-263); the frame crop is a view
+        x = at_least_float32(x)
+        mask = torch.sigmoid(x).to(cfg.dtype or x.dtype)[
+            :, :, g.narrowed_deconv_ss: g.narrowed_deconv_ss + g.n_mask_frames]
+        # (B, n_in*tracks, T, F) -> (B, n_in, tracks, T, F): channel =
+        # in*tracks + track, as the JAX model's reshape
         if taps is not None:
-            taps["mask"] = mask
+            taps["mask"] = mask.unflatten(1, (g.num_in_channels, cfg.sep_num_tracks))
+        if self.nhwc:
+            # K3 reads the (B, T, F, tracks) view of the channels_last mask
+            x_sep = masked_istft_nhwc(stft_re[:, 0], stft_im[:, 0], mask.permute(0, 2, 3, 1),
+                                      4, cfg.pallas_precision)
+            return x_sep[:, None, :, g.out_ss: g.out_tt]      # (B, 1, tracks, snd_dur)
+        mask = mask.unflatten(1, (g.num_in_channels, cfg.sep_num_tracks))
         # CUDA tensors go through the fused kernels (K1 forward, K2
         # backward), CPU tensors through the plain version (the counterpart
         # of _pallas_enabled's "auto")
@@ -202,10 +235,10 @@ class SptAudioGen(nn.Module):
             "the bottleneck aligns visual features to the audio time axis, "
             "so the audio encoder is required (as in the JAX model)")
         g = cfg.geometry
-        self.audio_encoder = AudioEncoder(g.num_in_channels)
+        self.audio_encoder = AudioEncoder(g.num_in_channels, cfg.dtype)
         for name in (VIDEO, FLOW):
             if name in cfg.encoders:
-                self.add_module(f"{name}_encoder", ResNet18())
+                self.add_module(f"{name}_encoder", ResNet18(dtype=cfg.dtype))
         self.bottleneck = Bottleneck(cfg, frame_hw)
         feat = self.bottleneck.out_features
         self.localization = LocalizationHead(cfg, feat)
@@ -236,11 +269,11 @@ class SptAudioGen(nn.Module):
         mag = torch.sqrt(re * re + im * im)                  # (B, n_in, T_enc, F)
         if taps is not None:
             taps["stft_mag"] = mag.permute(0, 2, 3, 1)
-        enc = {AUDIO: self.audio_encoder(mag)}
+        enc = {AUDIO: self.audio_encoder(cast(mag, cfg.dtype))}
         for name, frames in ((VIDEO, video), (FLOW, flow)):
             if name in cfg.encoders:
                 assert frames is not None, f"{name} encoder requires {name} input"
-                x = frames.flatten(0, 1).permute(0, 3, 1, 2).contiguous()
+                x = cast(frames.flatten(0, 1).permute(0, 3, 1, 2), cfg.dtype).contiguous()
                 enc[name] = getattr(self, f"{name}_encoder")(
                     x, train or cfg.bn_batch_stats, train)
         feats = self.bottleneck({k: (v[-1] if k == AUDIO else v)
@@ -255,13 +288,13 @@ class SptAudioGen(nn.Module):
             x_sep = self.separation(feats, enc[AUDIO], re[:, :, lo:hi],
                                     im[:, :, lo:hi], taps)
 
-        # decode: A_t = sum_tracks sum_in W_t * s_t + b_t (model.py:430),
-        # applied blockwise: each video-rate coefficient covers snd_dur/T
-        # consecutive audio samples
+        # decode, in the separated tracks' float dtype: A_t = sum_tracks
+        # sum_in W_t * s_t + b_t (model.py:430), applied blockwise: each
+        # video-rate coefficient covers snd_dur/T consecutive audio samples
         b, t_coef = weights.shape[:2]
         s = x_sep.unflatten(3, (t_coef, g.snd_dur // t_coef))   # (B, in, tr, T, reps)
-        ambi = torch.einsum("btoik,biktr->btro", weights, s)
-        ambi = ambi + biases[..., 0][:, :, None]
+        ambi = torch.einsum("btoik,biktr->btro", weights.to(s.dtype), s)
+        ambi = ambi + biases[..., 0].to(s.dtype)[:, :, None]
         return ambi.reshape(b, g.snd_dur, g.num_out_channels)
 
     def no_decay_paths(self) -> tuple:

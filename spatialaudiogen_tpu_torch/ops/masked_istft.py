@@ -1,6 +1,6 @@
-"""Fused masked comb-ISTFT (K1) and its fused backward (K2): the CUDA
-kernels' wrappers, their plain PyTorch versions, the autograd function that
-joins them, and the kernels' build.
+"""Fused masked comb-ISTFT (K1), its fused backward (K2) and K1 over an
+NHWC mask (K3): the CUDA kernels' wrappers, their plain PyTorch versions,
+the autograd functions that join them, and the kernels' build.
 
 `masked_istft` is the counterpart of
 spatialaudiogen_tpu.ops.pallas_kernels.masked_istft_pallas (same inputs and
@@ -10,8 +10,13 @@ and the backward K2 (csrc/masked_istft_bwd.cu); for CPU tensors it runs
 `masked_istft_plain`, the counterpart of `masked_istft_reference`, and
 autograd differentiates that. `masked_istft_bwd` is K2's wrapper and
 `masked_istft_bwd_plain` its plain version, the counterpart of
-`_bwd_xla`. There is no fallback between the routes: a CUDA input a kernel
-cannot take raises.
+`_bwd_xla`. `masked_istft_nhwc` is the counterpart of
+masked_istft_nhwc_pallas: mono spectra and a (B, T, F, tracks) mask, read
+in place as a strided view; CUDA tensors launch K3
+(csrc/masked_istft_nhwc.cu) and differentiate through K2 on the mask made
+track-major, as _nhwc_bwd does; CPU tensors run `masked_istft_nhwc_plain`.
+There is no fallback between the routes: a CUDA input a kernel cannot take
+raises.
 
 The kernels are compiled with nvcc at first use into `build/` beside this
 file (`.gitignore` lists it), one nvcc per source, all started together,
@@ -37,17 +42,20 @@ import torch.nn.functional as F
 from spatialaudiogen_tpu_torch.ops.dft import basis, istft_real
 
 CSRC = Path(__file__).parent / "csrc"
-SOURCES = (CSRC / "masked_istft.cu", CSRC / "masked_istft_bwd.cu")
+SOURCES = (CSRC / "masked_istft.cu", CSRC / "masked_istft_bwd.cu",
+           CSRC / "masked_istft_nhwc.cu")
 BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 ROWS_PER_BLOCK = 128   # K1's BM: (track, frame) rows one block stages at a time
+NHWC_TRACKS = 4        # K3's tracks per block, one vector load of the mask
 MAX_SMEM = 232448      # bytes of shared memory one block may use on Hopper
 
-# Launches of K1 and K2 (never of the plain versions); read and reset by
-# callers that need to show the main path went through the kernels.
+# Launches of K1, K2 and K3 (never of the plain versions); read and reset
+# by callers that need to show the main path went through the kernels.
 launch_count = 0
 bwd_launch_count = 0
+nhwc_launch_count = 0
 
 
 def masked_istft_plain(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
@@ -115,6 +123,33 @@ def masked_istft_bwd(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
     return _launch_bwd(re, im, mask, g, n_overlap)
 
 
+def masked_istft_nhwc_plain(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
+                            n_overlap: int = 4) -> torch.Tensor:
+    """Plain PyTorch version of K3: the mask viewed track-major, then
+    masked_istft_plain.
+
+    re, im: (B, T, F); mask: (B, T, F, TR) -> (B, TR, out_len)."""
+    return masked_istft_plain(re[:, None], im[:, None], mask.permute(0, 3, 1, 2)[:, None],
+                              n_overlap)[:, 0]
+
+
+def masked_istft_nhwc(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
+                      n_overlap: int = 4, precision: str = "highest") -> torch.Tensor:
+    """Fused masked comb-ISTFT over an NHWC (deconv-native) mask, mono input.
+
+    re, im: (B, T, F) float32 spectra of the input channel; mask:
+    (B, T, F, TR) float32 or bfloat16, any strides (the U-Net's cropped
+    channels_last output is read in place). Returns (B, TR, out_len)
+    float32, what masked_istft returns on the mask made track-major;
+    trailing frames beyond a multiple of n_overlap are dropped and get zero
+    gradient."""
+    if precision not in ("highest", "default"):
+        raise ValueError(f"precision must be 'highest' or 'default', got {precision!r}")
+    if _route(re, im, mask) == "cpu":
+        return masked_istft_nhwc_plain(re, im, mask, n_overlap)
+    return _MaskedISTFTNHWC.apply(re, im, mask, n_overlap)
+
+
 class _MaskedISTFT(torch.autograd.Function):
     """K1 forward, K2 backward (the custom VJP of masked_istft_pallas)."""
 
@@ -129,6 +164,25 @@ class _MaskedISTFT(torch.autograd.Function):
         re, im, mask = ctx.saved_tensors
         d_re, d_im, d_mask = _launch_bwd(re, im, mask, g.contiguous(), ctx.n_overlap)
         return d_re, d_im, d_mask, None
+
+
+class _MaskedISTFTNHWC(torch.autograd.Function):
+    """K3 forward; backward as _nhwc_bwd: K2 on the mask made track-major
+    and contiguous, d_mask handed back as an NHWC view in the mask dtype."""
+
+    @staticmethod
+    def forward(ctx, re, im, mask, n_overlap):
+        ctx.save_for_backward(re, im, mask)
+        ctx.n_overlap = n_overlap
+        return _launch_nhwc(re, im, mask, n_overlap)
+
+    @staticmethod
+    def backward(ctx, g):
+        re, im, mask = ctx.saved_tensors
+        mask_tm = mask.permute(0, 3, 1, 2)[:, None].contiguous()
+        d_re, d_im, d_mask = _launch_bwd(re[:, None], im[:, None], mask_tm,
+                                         g[:, None].contiguous(), ctx.n_overlap)
+        return d_re[:, 0], d_im[:, 0], d_mask[:, 0].permute(0, 2, 3, 1), None
 
 
 def _route(*tensors) -> str:
@@ -250,6 +304,50 @@ def _launch_bwd(re, im, mask, g, n_overlap):
     return d_re, d_im, d_mask
 
 
+def _launch_nhwc(re, im, mask, n_overlap):
+    global nhwc_launch_count
+    _check(n_overlap == 4, f"n_overlap must be 4, got {n_overlap}")
+    _check(re.dtype == im.dtype == torch.float32, f"re/im must be float32, got "
+           f"{re.dtype}/{im.dtype}")
+    _check(mask.dtype in (torch.float32, torch.bfloat16),
+           f"mask must be float32 or bfloat16, got {mask.dtype}")
+    _check(re.dim() == 3 and im.shape == re.shape, f"re/im must be (B, T, F) of one "
+           f"shape, got {tuple(re.shape)}/{tuple(im.shape)}")
+    b, t, f = re.shape
+    _check(mask.dim() == 4 and mask.shape[:3] == (b, t, f),
+           f"mask must be (B, T, F, TR) = ({b}, {t}, {f}, TR), got {tuple(mask.shape)}")
+    tracks = mask.shape[3]
+    t_use = (t // n_overlap) * n_overlap
+    _check(t_use >= n_overlap, f"needs at least {n_overlap} frames, got {t}")
+    _check(f % (4 * 32) == 0, f"F must be a multiple of 128, got {f}")
+    _check(re.stride(-1) == 1 and im.stride(-1) == 1, "re/im's last axis must be contiguous")
+    lib = _library()
+    tpb = min(NHWC_TRACKS, tracks)
+    while tpb > 1 and lib.sag_masked_istft_nhwc_smem_bytes(tpb, t_use) > MAX_SMEM:
+        tpb -= 1
+    smem = lib.sag_masked_istft_nhwc_smem_bytes(tpb, t_use)
+    _check(smem <= MAX_SMEM, f"T={t_use} frames need {smem} bytes of shared "
+           f"memory per block, more than {MAX_SMEM}")
+    # one vector load brings 4 tracks: contiguous, 4-aligned tracks only
+    vec = (tpb == NHWC_TRACKS and tracks % NHWC_TRACKS == 0 and mask.stride(3) == 1
+           and all(st % NHWC_TRACKS == 0 for st, n in zip(mask.stride()[:3], mask.shape[:3])
+                   if n > 1)
+           and mask.data_ptr() % (NHWC_TRACKS * mask.element_size()) == 0)
+    c, s = basis(f, re.device)
+    out_len = (t_use // n_overlap) * f - (n_overlap - 1) * (f // n_overlap)
+    out = torch.empty((b, tracks, out_len), dtype=torch.float32, device=re.device)
+    stream = torch.cuda.current_stream(re.device)
+    err = lib.sag_masked_istft_nhwc_fwd(
+        re.data_ptr(), im.data_ptr(), mask.data_ptr(),
+        int(mask.dtype == torch.bfloat16), int(vec), c.data_ptr(), s.data_ptr(),
+        out.data_ptr(), b, tracks, t_use, f, tpb,
+        re.stride(0), re.stride(1), im.stride(0), im.stride(1),
+        *mask.stride(), _device_index(re), stream.cuda_stream)
+    _raise_on(err, lib, "masked_istft_nhwc")
+    nhwc_launch_count += 1
+    return out
+
+
 def _find_nvcc() -> str:
     candidates = [os.path.join(os.environ[k], "bin", "nvcc")
                   for k in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(k)]
@@ -338,6 +436,14 @@ def _library() -> ctypes.CDLL:
     lib.sag_masked_istft_bwd.restype = i32
     lib.sag_masked_istft_bwd_smem_bytes.argtypes = [i32]
     lib.sag_masked_istft_bwd_smem_bytes.restype = i64
+    lib.sag_masked_istft_nhwc_fwd.argtypes = [
+        ptr, ptr, ptr, i32, i32, ptr, ptr, ptr,     # re im mask bf16 vec C S out
+        i32, i32, i32, i32, i32,                    # n_b tracks T F tracks/block
+        i64, i64, i64, i64, i64, i64, i64, i64,     # strides
+        i32, ptr]                                   # device, stream
+    lib.sag_masked_istft_nhwc_fwd.restype = i32
+    lib.sag_masked_istft_nhwc_smem_bytes.argtypes = [i32, i32]
+    lib.sag_masked_istft_nhwc_smem_bytes.restype = i64
     lib.sag_cuda_error_string.argtypes = [i32]
     lib.sag_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -23,7 +23,8 @@ class TrainState:
 def create_train_state(cfg: TrainConfig, device, seed: int | None = None) -> TrainState:
     """Model with the reference's initialisers drawn from
     torch.Generator().manual_seed(seed) (cfg.seed by default), moved to
-    `device`, and its Adam optimizer."""
+    `device`, and its Adam optimizer. Params are float32 whatever
+    cfg.compute_dtype is: bfloat16 is a compute dtype only."""
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)
     model = SptAudioGen(cfg.model_config(), frame_hw=tuple(cfg.frame_hw))
     model.init_weights(gen)

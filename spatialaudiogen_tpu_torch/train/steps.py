@@ -41,7 +41,12 @@ def train_step(state: TrainState, batch: dict, lr: float,
                weight_decay: float = 5e-4, clip_norm: float | None = None) -> dict:
     """One step in place: forward with train=True (BN running averages
     move), training_loss, backward, the optional global-norm clip, then
-    Adam at learning rate `lr`. Returns the metrics as 0-d device tensors."""
+    Adam at learning rate `lr`. Returns the metrics as 0-d device tensors.
+
+    A model built with dtype=torch.bfloat16 runs its conv, deconv and FC
+    products in bfloat16; its params stay the float32 masters, so their
+    gradients and Adam's moments are float32, and the model's output and
+    the loss are float32 (the JAX package's compute_dtype="bfloat16")."""
     model = state.model
     cfg = model.cfg
     audio_in, video, flow, target, mask = split_batch(batch, cfg.geometry)

@@ -125,6 +125,26 @@ def test_cli_save_ambix(setup, tmp_path):
     np.testing.assert_allclose(wav, want, rtol=0, atol=1.5 / 32768)
 
 
+def test_cli_compute_dtype_bfloat16(setup, tmp_path):
+    """--compute_dtype bfloat16 deploys the float32 checkpoint with the
+    conv/FC products in bfloat16: the W passthrough is the input bit for
+    bit, and the predictions are within bf16 rounding of the float32 ones:
+    3.5e-2 relative L2 on this clip, whose near-constant frames let the
+    visual encoder's batch-statistics BatchNorm magnify rounding (see
+    test_deploy_matches_jax); limit 0.1. At least 1e-3: a port that ran
+    the products in float32 would differ from the float32 deploy only by
+    the bf16 mask's rounding, two orders of magnitude less."""
+    model_dir, clip, _, _, exact, _ = setup
+    ambi = cli_main([model_dir, clip, "--device", "cpu", "--batch_size", str(BATCH),
+                     "--deploy_start", str(START), "--deploy_duration", str(DURATION),
+                     "--compute_dtype", "bfloat16", "--f32_fetch",
+                     "--output_fn", str(tmp_path / "unused")])
+    assert ambi.shape == exact.shape and np.isfinite(ambi).all()
+    np.testing.assert_array_equal(ambi[:, 0], exact[:, 0])
+    err = rel_l2(ambi[:, 1:], exact[:, 1:])
+    assert 1e-3 <= err <= 0.1, err
+
+
 def test_crossfade_runs(setup):
     _, clip, _, engine, got, _ = setup
     xfade = engine.deploy(clip, START, DURATION, crossfade=True)

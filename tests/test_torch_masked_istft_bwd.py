@@ -141,8 +141,9 @@ def test_wrapper_runs_the_plain_backward_on_cpu_tensors():
 
 
 def test_library_hash_covers_every_source(tmp_path, monkeypatch):
-    """Both .cu files feed the library's name: editing either rebuilds."""
-    assert [s.name for s in k.SOURCES] == ["masked_istft.cu", "masked_istft_bwd.cu"]
+    """Every .cu file feeds the library's name: editing any one rebuilds."""
+    assert [s.name for s in k.SOURCES] == ["masked_istft.cu", "masked_istft_bwd.cu",
+                                           "masked_istft_nhwc.cu"]
     before = k.library_path()
     for i, src in enumerate(k.SOURCES):
         copy = tmp_path / src.name

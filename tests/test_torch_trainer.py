@@ -1,7 +1,8 @@
 """The port's Trainer, checkpoints and train CLI on the CPU: a smoke run with
 resume on a synthetic dataset (the shape of tests/test_trainer.py), the
 trained params.npz deployed by the port's MonoToAmbix, the SIGTERM stop,
-and the CLI's refusals of flags whose paths are not ported yet."""
+`--bf16` training, and the CLI's refusals of flags whose paths are not
+ported yet."""
 
 import json
 import os
@@ -93,7 +94,6 @@ def test_trained_params_deploy_on_cpu(db, trained):
 
 @pytest.mark.parametrize("flags, match", [
     ([], "flow"),                                   # the JAX default encoders
-    (["--bf16"], "bf16"),
     (["--n_model", "2"], "multi-device"),
     (["--n_data", "4"], "multi-device"),
     (["--coordinator", "localhost:1234"], "multi-process"),
@@ -107,6 +107,24 @@ def test_cli_refuses_unported_flags(tmp_path, flags, match):
     with pytest.raises(NotImplementedError, match=match):
         cli_train.main(argv)
     assert not (tmp_path / "model").exists()
+
+
+def test_cli_bf16_trains_with_float32_params(db, tmp_path):
+    """--bf16 (tests/test_trainer.py:137-155 for the port): two steps with
+    the conv/FC products in bfloat16, finite losses, float32 params.npz, and
+    the run's config records the dtype."""
+    model_dir = tmp_path / "bf16model"
+    state, step = cli_train.main([db, str(model_dir), "--encoders", "audio", "video",
+                                  "--bf16", "--num_sep_tracks", "2", "--frame_hw", "64", "128",
+                                  "--n_iters", "2", "--batch_size", "2", "--n_workers", "1",
+                                  "--log_every", "1", "--ckpt_every", "0", "--device", "cpu"])
+    assert step == 2 and state.model.cfg.dtype == torch.bfloat16
+    recs = [json.loads(line) for line in (model_dir / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in recs] == [0, 1]
+    assert all(np.isfinite(r["total_loss"]) for r in recs)
+    params = load_params(str(model_dir))
+    assert params and all(v.dtype == torch.float32 for v in params.values())
+    assert TrainConfig.load(str(model_dir)).compute_dtype == "bfloat16"
 
 
 def test_cli_parses_the_jax_flags():
