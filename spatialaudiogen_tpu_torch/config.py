@@ -42,8 +42,9 @@ class SptAudioGenConfig:
     # "highest": float32 everywhere, TF32 off for matmuls and convolutions;
     # "default": TF32 allowed (the counterpart of one bf16 MXU pass).
     dft_precision: str = "highest"
-    # Accepted for config parity; the CUDA kernels run FP32 FFMA for both
-    # values (exact for "highest", more than enough for "default").
+    # The masked ISTFT's GEMMs on the card: "default" bf16 operands with f32
+    # accumulation (K1, K2: one wgmma pass, the TPU's DEFAULT), "highest"
+    # 3xTF32 (f32-grade); K3 runs FP32 FFMA for both. The CPU route is f32.
     pallas_precision: str = "default"
     # No use_pallas field: the masked ISTFT routes by device, CUDA tensors
     # through the fused kernels and CPU tensors through their plain

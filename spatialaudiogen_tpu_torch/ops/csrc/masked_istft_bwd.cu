@@ -1,9 +1,12 @@
-// Backward of the fused masked comb-ISTFT for Hopper (sm_90a), FP32 FFMA.
+// Backward of the fused masked comb-ISTFT (K2) for Hopper (sm_90a), on the
+// tensor cores through wgmma (istft_mma.cuh): bf16 for
+// pallas_precision="default", 3xTF32 for "highest".
 //
 // Replaces the TPU kernel spatialaudiogen_tpu/ops/pallas_kernels.py:_bwd_kernel
-// (launched by _backward_pallas, the custom VJP of masked_istft_pallas).
-// The forward (masked_istft.cu) maps frame t, column n of a track to output
-// sample p = (t - 3)*hop + n. Its backward, for one (b, in) row, per track r:
+// (launched by _backward_pallas, the custom VJP of masked_istft_pallas; it
+// is also the backward of K3, as _nhwc_bwd). The forward (masked_istft.cu)
+// maps frame t, column n of a track to output sample p = (t - 3)*hop + n.
+// Its backward, for one (b, in) row, per track r:
 //
 //   gx[r, t, n]   = g[r, (t - 3)*hop + n] / (4F)      (0 outside [0, out_len))
 //   g_rm[r, t, f] = sum_n gx[r, t, n] C[n, f]          (C, S symmetric: no transpose)
@@ -12,282 +15,250 @@
 //   d_re[t, f]      = sum_r g_rm * m[r, t, f]
 //   d_im[t, f]      = sum_r g_im * m[r, t, f]
 //
-// Design. A block owns one (b, in) row and a tile of FT = 64 output
-// frequencies f, and loops over ALL tracks, so the track sums of d_re/d_im
-// stay on chip: no atomics, one store each, deterministic. The two GEMMs
-// share their A operand (gx), so a block computes them as one GEMM against
-// B = [C[:, f-tile] | S[:, f-tile]] (128 columns). A is gathered straight
-// from g while it is staged into shared memory (gx never reaches device
-// memory); the row space (track, frame) is walked in chunks of at most
-// BM = 128 rows made of whole tracks (or, for more than 128 frames, of one
-// track's frames). Per chunk the epilogue writes d_mask from registers and
-// parks g_rm*m and g_im*m in shared memory; a fixed-order pass then sums
-// them over the chunk's tracks into a per-block (frame, column) accumulator
-// in shared memory, which is written once at the end.
+// Design. A block owns one (b, in) row and a tile of FT = 128 output
+// frequencies f, and walks ALL tracks in passes of 128 (track, frame) rows
+// (4 tracks at T = 28; tracks longer than 128 frames in chunks of 128), so
+// the track sums of d_re/d_im never leave the block: no atomics,
+// deterministic. The two GEMMs share their A operand (gx), so a pass is one
+// GEMM against B = [C[:, f-tile] | S[:, f-tile]] (256 columns), depth F.
+// A is gathered from g in registers (istft_mma.cuh): the comb scatter and
+// the 1/(4F) scale happen as it is staged, before the rounding to bf16 or
+// the tf32 split, so gx never reaches device memory. B steps are laid out
+// once per (F, device, form) by ops/dft.py:mma_basis and copied whole by
+// the bulk TMA engine. The epilogue of a pass writes d_mask straight from
+// the accumulators (each thread holds g_rm and g_im of the same (row, f)),
+// parks g_rm*m and g_im*m in shared memory, and then thread c sums column
+// c over the pass's tracks in a fixed order and adds it to d_re/d_im in
+// device memory, which only this thread of this block touches: the same
+// order on every run. Frames beyond the last multiple of 4 are zeroed by
+// the wrapper.
 //
-// What bounds it: per flagship window (32 tracks x 28 frames, F = 1024) the
-// GEMM is 896 x 1024 x 2048 = 3.8 GFLOP against about 7.5 MB of input and
-// output (the mask read and d_mask written dominate), so it is bound by
-// arithmetic. The inner loop is K1's: A and B tiles staged through shared
-// memory with a register prefetch of the next tile, and an 8x8 register
-// tile per thread (8 rows x 4 columns of each of g_rm and g_im), so every
-// shared-memory read feeds 8 FMAs. The bases are read from L2. Skipping the
-// zero rows of g outside the model's output crop, and tensor cores, are
-// later work.
+// What bounds it on an H100 (batch 16 at the flagship): the same 60.1
+// GFLOP as K1, so 0.061 ms for "default" (bf16 at 989 TFLOP/s) and 0.364 ms
+// for "highest" (3xTF32); bytes: g 13.1 MB, re/im 3.7 MB, the mask read
+// and d_mask written (58.7 MB each in f32), d_re/d_im 3.7 MB: 0.041 ms. What
+// one call moves beyond that: each of the F/FT = 8 frequency tiles of a row
+// reads the row's g (8 x 13.1 MB, from L2 after the first) and re-reads its
+// basis tile once per pass (512 KB bf16, 2 MB 3xTF32; 8 passes at T = 28),
+// 512 MB (2 GB) from L2 at batch 16, and each pass reads and writes its
+// block's d_re/d_im columns (3.7 MB a pass in all).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "istft_mma.cuh"
 
 namespace {
 
+using namespace istft_mma;
+
 constexpr int kOverlap = 4;
-constexpr int FT = 64;                  // output frequencies per block
-constexpr int BN = 2 * FT;              // GEMM columns: FT of C, then FT of S
-constexpr int BM = 128;                 // A rows (track, frame) per chunk
-constexpr int BK = 16;                  // contraction depth per stage
-constexpr int kThreads = 256;           // 16 x 16 threads, 8x8 accumulators each
-constexpr int A_LD = BM + 4;            // A_s: k-major [BK][A_LD]
-constexpr int B_LD = BN;                // B_s: k-major [BK][B_LD]
-constexpr int P_LD = BN;                // P_s: row-major [BM][P_LD]
-constexpr int D_LD = BN;                // D_s: row-major [frames][D_LD]
+constexpr int FT = kN / 2;               // output frequencies per block
 
 struct Params {
   const float* g;          // (n_bn, n_tracks, out_len), contiguous
   const float* re;
   const float* im;
   const void* mask;
-  const float* cos_b;
-  const float* sin_b;
+  const uint8_t* b_hi;     // laid-out bases (bf16, or the tf32 hi part)
+  const uint8_t* b_lo;     // the tf32 lo part (3xTF32 only)
   void* d_mask;            // (n_bn, n_tracks, n_frames_total, F), contiguous
   float* d_re;             // (n_bn, n_frames_total, F), contiguous
   float* d_im;
   int n_tracks;
   int n_frames;            // frames used (a multiple of 4)
   int n_frames_total;      // frames of the outputs (>= n_frames)
-  int n_freqs;             // F, a multiple of FT (so hop and out_len are multiples of 16)
+  int n_freqs;             // F, a multiple of 2 * FT
   int out_len;
   long long re_s_bn, re_s_t;           // element strides; the F axis is contiguous
   long long im_s_bn, im_s_t;
   long long m_s_bn, m_s_tr, m_s_t;
 };
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* q = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 lo = __bfloat1622float2(q[0]);
-  const float2 hi = __bfloat1622float2(q[1]);
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
+// The A values of the thread's two rows: v[0..3] and v[4..7] = gx at
+// samples 32 s + 4 tig + (0..3) and 32 s + 16 + 4 tig + (0..3) of the frame.
+struct Loader {
+  const float* g[2];     // the row's track of g
+  int p0[2];             // output sample of the frame's sample 4 tig (may be < 0)
+  bool ok[2];
+  int out_len;
+  float scale;
+  float4 gv[2][2];
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162* q = reinterpret_cast<__nv_bfloat162*>(p);
-  q[0] = __floats2bfloat162_rn(v.x, v.y);
-  q[1] = __floats2bfloat162_rn(v.z, v.w);
-}
+  __device__ __forceinline__ void fetch(int s) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // out_len and the sample offsets are multiples of 4, so a float4 of
+        // g lies wholly inside or wholly outside [0, out_len)
+        const int i = p0[r] + 32 * s + 16 * h;
+        gv[r][h] = ok[r] && i >= 0 && i < out_len ? load4(g[r] + i)
+                                                  : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+  }
 
-template <typename MaskT>
-__global__ void __launch_bounds__(kThreads, 2)
-masked_istft_bwd_kernel(const Params p) {
-  extern __shared__ float4 smem4[];
-  float* A_s = reinterpret_cast<float*>(smem4);   // [BK][A_LD]
-  float* B_s = A_s + BK * A_LD;                   // [BK][B_LD]
-  float* P_s = B_s + BK * B_LD;                   // [BM][P_LD]
-  float* D_s = P_s + BM * P_LD;                   // [n_frames][D_LD]
+  __device__ __forceinline__ void values(float (&v)[2][8]) const {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        v[r][4 * h + 0] = gv[r][h].x * scale;
+        v[r][4 * h + 1] = gv[r][h].y * scale;
+        v[r][4 * h + 2] = gv[r][h].z * scale;
+        v[r][4 * h + 3] = gv[r][h].w * scale;
+      }
+  }
+};
+
+template <int P, typename MaskT>
+__global__ void __launch_bounds__(kThreads, 1) masked_istft_bwd_kernel(const Params p) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  float* P_s = reinterpret_cast<float*>(smem);   // [kPassRows][kOutLD], after each GEMM
 
   const int F = p.n_freqs;
   const int T = p.n_frames;
   const int hop = F / kOverlap;
   const int n_ftiles = F / FT;
-  const int f0 = (blockIdx.x % n_ftiles) * FT;
+  const int f_tile = blockIdx.x % n_ftiles;
+  const int f0 = f_tile * FT;
   const long long bn = blockIdx.x / n_ftiles;
+  const Rows rows(T);
+  const int chunk = rows.per_tile ? T : kPassRows;   // frames of a pass
+  const int tig = threadIdx.x % 4;
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16;
-  const int tx = tid % 16;
+  Ring<P> ring;
+  ring.init(smem);
+
   const MaskT* mask = static_cast<const MaskT*>(p.mask);
   MaskT* d_mask = static_cast<MaskT*>(p.d_mask);
-  const float* g_row = p.g + bn * p.n_tracks * (long long)p.out_len;
-  const float scale = 1.f / (float(kOverlap) * float(F));
-  const int n_k_tiles = F / BK;
+  const int n_steps = F / kStepK;
+  const size_t tile_bytes = (size_t)n_steps * form_bytes<P>();
+  const uint8_t* b_hi = p.b_hi + f_tile * tile_bytes;
+  const uint8_t* b_lo = p.b_lo + f_tile * tile_bytes;
 
-  for (int i = tid; i < T * D_LD; i += kThreads) D_s[i] = 0.f;
+  Loader ld;
+  ld.out_len = p.out_len;
+  ld.scale = 1.f / (float(kOverlap) * float(F));
 
-  // Chunks: whole tracks when a track's frames fit in BM rows, else one
-  // track's frames BM at a time. Row `row` of a chunk is
-  // (track r0 + row / nt, frame t0 + row % nt).
-  const int frames_per_chunk = T < BM ? T : BM;
-  const int tracks_per_chunk = T < BM ? BM / T : 1;
-
-  // Staging map (as in masked_istft.cu). A tile (BK x BM): thread loads 4
-  // consecutive k of row a_row[i]. B tile (BK x BN): thread loads 4
-  // consecutive columns of one basis row; columns [0, FT) come from C,
-  // [FT, BN) from S.
-  int a_row[2], a_k[2], b_k[2], b_col[2];
+  for (int tr0 = 0; tr0 < p.n_tracks; tr0 += rows.per_pass) {
+    const int n_tr = min(rows.per_pass, p.n_tracks - tr0);
+    for (int t0 = 0; t0 < T; t0 += chunk) {
+      const int nt = min(chunk, T - t0);
+      int trk[2], frm[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = tid + kThreads * i;
-    a_row[i] = idx >> 2;
-    a_k[i] = (idx & 3) * 4;
-    b_k[i] = idx >> 5;
-    b_col[i] = (idx & 31) * 4;
-  }
-
-  for (int r0 = 0; r0 < p.n_tracks; r0 += tracks_per_chunk) {
-    const int ntr = min(tracks_per_chunk, p.n_tracks - r0);
-    for (int t0 = 0; t0 < T; t0 += frames_per_chunk) {
-      const int nt = min(frames_per_chunk, T - t0);
-      const int rows = ntr * nt;
-
-      // A row -> first output sample p0 of its frame (may be negative)
-      const float* g_ptr[2];
-      int p0[2];
-      bool a_ok[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int row = a_row[i];
-        a_ok[i] = row < rows;
-        const int r = r0 + (a_ok[i] ? row / nt : 0);
-        const int t = t0 + (a_ok[i] ? row % nt : 0);
-        g_ptr[i] = g_row + (long long)r * p.out_len;
-        p0[i] = (t - (kOverlap - 1)) * hop + a_k[i];
+      for (int r = 0; r < 2; ++r) {
+        int tl, tt;
+        ld.ok[r] = rows.at(frag_row(r), tl, tt) && tl < n_tr && tt < nt;
+        trk[r] = ld.ok[r] ? tr0 + tl : 0;
+        frm[r] = ld.ok[r] ? t0 + tt : 0;
+        ld.g[r] = p.g + (bn * p.n_tracks + trk[r]) * (long long)p.out_len;
+        ld.p0[r] = (frm[r] - (kOverlap - 1)) * hop + 4 * tig;
       }
 
-      float acc[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+      float acc[128];
+      ring.gemm(acc, b_hi, b_lo, n_steps, ld);
 
-      float4 pa[2], pb[2];   // next tile, prefetched into registers
-
-      auto fetch = [&](int kt) {
-        const int n0 = kt * BK;
+      // Epilogue: accumulator j (< 16) holds g_rm and j + 16 g_im of the
+      // same frequencies f0 + 8 j + 2 tig + (0, 1).
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          // out_len and the sample offsets are multiples of 4, so a float4
-          // of g lies wholly inside or wholly outside [0, out_len)
-          const int s = p0[i] + n0;
-          float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (a_ok[i] && s >= 0 && s < p.out_len) {
-            const float4 v = load4(g_ptr[i] + s);
-            a = make_float4(v.x * scale, v.y * scale, v.z * scale, v.w * scale);
+      for (int r = 0; r < 2; ++r) {
+        if (!ld.ok[r]) continue;
+        const int t = frm[r];
+        const float* re = p.re + bn * p.re_s_bn + (long long)t * p.re_s_t + f0 + 2 * tig;
+        const float* im = p.im + bn * p.im_s_bn + (long long)t * p.im_s_t + f0 + 2 * tig;
+        const MaskT* m = mask + bn * p.m_s_bn + (long long)trk[r] * p.m_s_tr +
+                         (long long)t * p.m_s_t + f0 + 2 * tig;
+        MaskT* dm = d_mask + ((bn * p.n_tracks + trk[r]) * p.n_frames_total + t) * (long long)F +
+                    f0 + 2 * tig;
+        float* prod = P_s + frag_row(r) * kOutLD + 2 * tig;
+        // loads in batches of 4 frequency pairs, ahead of the stores (which
+        // the compiler may not move loads across)
+#pragma unroll
+        for (int j0 = 0; j0 < FT / 8; j0 += 4) {
+          float2 rv[4], iv[4], mv[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            rv[u] = load2(re + 8 * (j0 + u));
+            iv[u] = load2(im + 8 * (j0 + u));
+            mv[u] = load2(m + 8 * (j0 + u));
           }
-          pa[i] = a;
-          const float* basis = b_col[i] < FT ? p.cos_b : p.sin_b;
-          pb[i] = load4(basis + (long long)(n0 + b_k[i]) * F + f0 + (b_col[i] % FT));
-        }
-      };
-
-      fetch(0);
-      for (int kt = 0; kt < n_k_tiles; ++kt) {
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          float* a = A_s + a_k[i] * A_LD + a_row[i];
-          a[0] = pa[i].x;
-          a[A_LD] = pa[i].y;
-          a[2 * A_LD] = pa[i].z;
-          a[3 * A_LD] = pa[i].w;
-          store4(B_s + b_k[i] * B_LD + b_col[i], pb[i]);
-        }
-        __syncthreads();
-        if (kt + 1 < n_k_tiles) fetch(kt + 1);   // in flight during the FMAs
-#pragma unroll
-        for (int kk = 0; kk < BK; ++kk) {
-          const float4 a0 = *reinterpret_cast<const float4*>(A_s + kk * A_LD + ty * 8);
-          const float4 a1 = *reinterpret_cast<const float4*>(A_s + kk * A_LD + ty * 8 + 4);
-          const float4 b0 = *reinterpret_cast<const float4*>(B_s + kk * B_LD + tx * 4);
-          const float4 b1 = *reinterpret_cast<const float4*>(B_s + kk * B_LD + FT + tx * 4);
-          const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-        __syncthreads();
-      }
-
-      // Epilogue: thread (ty, tx) holds rows ty*8 + i, columns f0 + tx*4 + j
-      // of g_rm (acc[i][j]) and g_im (acc[i][4 + j]).
-      const int f = f0 + tx * 4;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int row = ty * 8 + i;
-        if (row < rows) {
-          const int r = r0 + row / nt;
-          const int t = t0 + row % nt;
-          const float4 re = load4(p.re + bn * p.re_s_bn + (long long)t * p.re_s_t + f);
-          const float4 im = load4(p.im + bn * p.im_s_bn + (long long)t * p.im_s_t + f);
-          const float4 m = load4(mask + bn * p.m_s_bn + (long long)r * p.m_s_tr +
-                                 (long long)t * p.m_s_t + f);
-          const float4 dm = make_float4(acc[i][0] * re.x + acc[i][4] * im.x,
-                                        acc[i][1] * re.y + acc[i][5] * im.y,
-                                        acc[i][2] * re.z + acc[i][6] * im.z,
-                                        acc[i][3] * re.w + acc[i][7] * im.w);
-          store4(d_mask + ((bn * p.n_tracks + r) * p.n_frames_total + t) * (long long)F + f,
-                 dm);
-          store4(P_s + row * P_LD + tx * 4,
-                 make_float4(acc[i][0] * m.x, acc[i][1] * m.y, acc[i][2] * m.z,
-                             acc[i][3] * m.w));
-          store4(P_s + row * P_LD + FT + tx * 4,
-                 make_float4(acc[i][4] * m.x, acc[i][5] * m.y, acc[i][6] * m.z,
-                             acc[i][7] * m.w));
+          for (int u = 0; u < 4; ++u) {
+            const int j = j0 + u;
+            const float2 rm = make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+            const float2 ii =
+                make_float2(acc[4 * (j + 16) + 2 * r], acc[4 * (j + 16) + 2 * r + 1]);
+            store2(dm + 8 * j, make_float2(rm.x * rv[u].x + ii.x * iv[u].x,
+                                           rm.y * rv[u].y + ii.y * iv[u].y));
+            store2(prod + 8 * j, make_float2(rm.x * mv[u].x, rm.y * mv[u].y));
+            store2(prod + FT + 8 * j, make_float2(ii.x * mv[u].x, ii.y * mv[u].y));
+          }
         }
       }
       __syncthreads();
 
-      // Track sum of this chunk, in a fixed order: element (tt, c) is
-      // always handled by the same thread, so the result is deterministic.
-      for (int idx = tid; idx < nt * BN; idx += kThreads) {
-        const int c = idx % BN;
-        const int tt = idx / BN;
-        float s = 0.f;
-        for (int tl = 0; tl < ntr; ++tl) s += P_s[(tl * nt + tt) * P_LD + c];
-        D_s[(t0 + tt) * D_LD + c] += s;
+      // Track sum in a fixed order: column c is always summed by thread c,
+      // which alone reads and writes it in d_re / d_im.
+      {
+        const int c = threadIdx.x;
+        float* dst = (c < FT ? p.d_re : p.d_im) + bn * p.n_frames_total * (long long)F + f0 +
+                     (c % FT);
+        // the earlier passes' sums of 8 frames loaded together, then added to
+        for (int tt0 = 0; tt0 < nt; tt0 += 8) {
+          float sum[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            sum[u] = tr0 > 0 && tt0 + u < nt ? dst[(long long)(t0 + tt0 + u) * F] : 0.f;
+#pragma unroll
+          for (int u = 0; u < 8; ++u) {
+            if (tt0 + u >= nt) break;
+            for (int tl = 0; tl < n_tr; ++tl) sum[u] += P_s[rows.row(tl, tt0 + u) * kOutLD + c];
+            dst[(long long)(t0 + tt0 + u) * F] = sum[u];
+          }
+        }
       }
-      __syncthreads();
+      __syncthreads();   // the next pass's stages overwrite P_s
     }
   }
+}
 
-  for (int idx = tid; idx < T * BN; idx += kThreads) {
-    const int c = idx % BN;
-    const int t = idx / BN;
-    float* dst = c < FT ? p.d_re : p.d_im;
-    dst[(bn * p.n_frames_total + t) * (long long)F + f0 + (c % FT)] = D_s[t * D_LD + c];
-  }
+template <int P>
+void* pick(int mask_is_bf16) {
+  return mask_is_bf16 ? (void*)masked_istft_bwd_kernel<P, __nv_bfloat16>
+                      : (void*)masked_istft_bwd_kernel<P, float>;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory one launch needs, in bytes.
-long long sag_masked_istft_bwd_smem_bytes(int n_frames) {
-  return (long long)(BK * A_LD + BK * B_LD + BM * P_LD + (long long)n_frames * D_LD) *
-         (long long)sizeof(float);
-}
+// Shared memory one launch needs, in bytes (the same for both precisions).
+long long sag_masked_istft_bwd_smem_bytes() { return kSmemBytes; }
 
 // Launches the kernel on `stream` (a cudaStream_t) of device `device`.
+// precision: 0 bf16 ("default"), 1 3xTF32 ("highest"); b_hi/b_lo the laid-out
+// bases of that precision (ops/dft.py:mma_basis, kernel "bwd").
 // g is (n_bn, n_tracks, (n_frames - 3) * n_freqs / 4) float32, contiguous;
 // d_mask (mask dtype), d_re and d_im are contiguous with n_frames_total
 // frames, of which the kernel writes the first n_frames.
 // Returns the cudaError_t of the launch (0 on success).
 int sag_masked_istft_bwd(const float* g, const float* re, const float* im,
-                         const void* mask, int mask_is_bf16, const float* cos_b,
-                         const float* sin_b, void* d_mask, float* d_re, float* d_im,
-                         int n_bn, int n_tracks, int n_frames, int n_frames_total,
-                         int n_freqs, long long re_s_bn, long long re_s_t,
-                         long long im_s_bn, long long im_s_t, long long m_s_bn,
-                         long long m_s_tr, long long m_s_t, int device, void* stream) {
+                         const void* mask, int mask_is_bf16, int precision,
+                         const void* b_hi, const void* b_lo, void* d_mask, float* d_re,
+                         float* d_im, int n_bn, int n_tracks, int n_frames,
+                         int n_frames_total, int n_freqs, long long re_s_bn,
+                         long long re_s_t, long long im_s_bn, long long im_s_t,
+                         long long m_s_bn, long long m_s_tr, long long m_s_t, int device,
+                         void* stream) {
   if (n_bn < 1 || n_tracks < 1 || n_frames < kOverlap || n_frames % kOverlap != 0 ||
-      n_frames_total < n_frames || n_freqs % FT != 0) {
+      n_frames_total < n_frames || n_freqs % (2 * FT) != 0 ||
+      (precision != kBF16 && precision != kTF32x3)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaError_t err = cudaSetDevice(device);
@@ -298,8 +269,8 @@ int sag_masked_istft_bwd(const float* g, const float* re, const float* im,
   p.re = re;
   p.im = im;
   p.mask = mask;
-  p.cos_b = cos_b;
-  p.sin_b = sin_b;
+  p.b_hi = static_cast<const uint8_t*>(b_hi);
+  p.b_lo = static_cast<const uint8_t*>(b_lo);
   p.d_mask = d_mask;
   p.d_re = d_re;
   p.d_im = d_im;
@@ -317,12 +288,13 @@ int sag_masked_istft_bwd(const float* g, const float* re, const float* im,
   p.m_s_t = m_s_t;
 
   const long long n_blocks = (long long)n_bn * (n_freqs / FT);
-  const long long smem = sag_masked_istft_bwd_smem_bytes(n_frames);
-  void (*kernel)(const Params) = mask_is_bf16 ? masked_istft_bwd_kernel<__nv_bfloat16>
-                                              : masked_istft_bwd_kernel<float>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  void* kernel = precision == kBF16 ? pick<kBF16>(mask_is_bf16) : pick<kTF32x3>(mask_is_bf16);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned int)n_blocks, kThreads, (size_t)smem, (cudaStream_t)stream>>>(p);
+  void* args[] = {&p};
+  err = cudaLaunchKernel(kernel, dim3((unsigned int)n_blocks), dim3(kThreads), args,
+                         (size_t)kSmemBytes, (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

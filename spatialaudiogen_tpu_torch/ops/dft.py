@@ -44,6 +44,73 @@ def basis(wind_size: int, device, dtype=torch.float32) -> tuple[torch.Tensor, to
     return _DEVICE_CONSTS[key]
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 values rounded to TF32 (10 mantissa bits), to nearest with
+    ties away from zero: what cvt.rna.tf32.f32 does on the card."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+# The laid-out bases of K1 and K2's tensor-core routes
+# (ops/csrc/istft_mma.cuh): a step is 32 logical k, one wgmma's B tile is
+# 256 columns x 32 bytes of k in 16-byte core matrices of 8 columns,
+# core (nb, kc) at byte kc * 4096 + nb * 128, row i of the core at i * 16.
+MMA_COLUMNS = 256
+MMA_RESIDUES = MMA_COLUMNS // 4     # K1: hop residues per block
+MMA_FREQS = MMA_COLUMNS // 2        # K2: output frequencies per block
+MMA_ROUTES = {"default": (2, 8), "highest": (4, 4)}   # (wgmmas a step, values a 16-byte row)
+
+
+def _mma_layout(wind_size: int, kernel: str, precision: str) -> np.ndarray:
+    """float32 basis values in the byte order of K1's ("fwd") or K2's
+    ("bwd") shared-memory B images, (tiles, steps, wgmmas, 2, 32, 8, E)
+    for (column tile, step, wgmma w, k chunk kc, core nb, column i, value e).
+
+    Slot (half, tig, j) of a step (istft_mma.cuh) is k chunk kc = half and
+    tig, j = e // 2, 2 w + e % 2 (bf16 k16) or e, w (tf32 k8). Column
+    c = 8 nb + i. K1: row 16 s + 4 tig + j of C (half 0) or S (half 1), at
+    column q * hop + 64 tile + rr, c = 64 q + rr. K2: row
+    32 s + 16 half + 4 tig + j of C (c < 128) or S at column
+    128 tile + c % 128."""
+    n_w, n_e = MMA_ROUTES[precision]
+    hop = wind_size // 4
+    c_b, s_b = _basis(wind_size)
+    bases = np.stack([c_b, s_b])
+    if kernel == "fwd":
+        tiles, steps = hop // MMA_RESIDUES, wind_size // 16
+    elif kernel == "bwd":
+        tiles, steps = wind_size // MMA_FREQS, wind_size // 32
+    else:
+        raise ValueError(f"kernel must be 'fwd' or 'bwd', got {kernel!r}")
+    tile, s, w, kc, nb, i, e = np.ogrid[:tiles, :steps, :n_w, :2, :32, :8, :n_e]
+    tig, j = (e // 2, 2 * w + e % 2) if n_e == 8 else (e, w)
+    col = 8 * nb + i
+    if kernel == "fwd":
+        row = 16 * s + 4 * tig + j
+        return bases[kc, row, (col // MMA_RESIDUES) * hop + MMA_RESIDUES * tile
+                     + col % MMA_RESIDUES]
+    row = 32 * s + 16 * kc + 4 * tig + j
+    return bases[col // MMA_FREQS, row, MMA_FREQS * tile + col % MMA_FREQS]
+
+
+def mma_basis(wind_size: int, device, kernel: str, precision: str
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) laid-out bases of K1 ("fwd") or K2 ("bwd") for `precision`,
+    made once per (F, device, kernel, precision): bf16 twice (lo unused) for
+    "default", the tf32 hi and lo parts of the float32 bases for
+    "highest"."""
+    key = ("mma", wind_size, str(torch.device(device)), kernel, precision)
+    if key not in _DEVICE_CONSTS:
+        x = torch.from_numpy(np.ascontiguousarray(_mma_layout(wind_size, kernel, precision)))
+        if precision == "default":
+            hi = lo = x.to(torch.bfloat16)
+        else:
+            hi = tf32_round(x)
+            lo = tf32_round(x - hi)
+        _DEVICE_CONSTS[key] = (hi.to(device), lo.to(device))
+    return _DEVICE_CONSTS[key]
+
+
 def _window(wind_size: int, device, dtype=torch.float32) -> torch.Tensor:
     key = ("hann", wind_size, str(torch.device(device)), dtype)
     if key not in _DEVICE_CONSTS:

@@ -18,11 +18,24 @@ track-major, as _nhwc_bwd does; CPU tensors run `masked_istft_nhwc_plain`.
 There is no fallback between the routes: a CUDA input a kernel cannot take
 raises.
 
+`precision` (the model's pallas_precision) picks K1's and K2's route on
+the tensor cores (csrc/istft_mma.cuh), and the backward gets the
+forward's: "default" rounds both GEMM operands to bf16 and accumulates in
+f32 (one wgmma pass, the TPU's DEFAULT, about 2e-3 relative L2 from f32);
+"highest" runs 3xTF32 (f32-grade). The plain versions take the same
+argument: "default" rounds the same two operands to bf16 and multiplies in
+f32, which is what the card's checks hold the bf16 route to. K3 runs FP32
+FFMA for both values. The CPU route runs the f32 plain version whatever
+`precision` says, as the JAX model's non-Pallas branch uses dft_precision.
+On an H100 (NVIDIA's peaks) the work of one flagship call at batch 16,
+60.1 GFLOP against about 80 MB, is bound by operations: 0.061 ms in bf16,
+0.364 ms in 3xTF32, 0.897 ms in K3's FP32 FFMA.
+
 The kernels are compiled with nvcc at first use into `build/` beside this
 file (`.gitignore` lists it), one nvcc per source, all started together,
-then linked into one library, rebuilt when any source's hash changes.
-They are plain C entry points loaded with ctypes, so the build needs no
-PyTorch headers and takes seconds.
+then linked into one library, rebuilt when any source's or header's hash
+changes. They are plain C entry points loaded with ctypes, so the build
+needs no PyTorch headers and takes seconds.
 """
 
 from __future__ import annotations
@@ -39,17 +52,19 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from spatialaudiogen_tpu_torch.ops.dft import basis, istft_real
+from spatialaudiogen_tpu_torch.ops.dft import _overlap_add, basis, mma_basis
 
 CSRC = Path(__file__).parent / "csrc"
 SOURCES = (CSRC / "masked_istft.cu", CSRC / "masked_istft_bwd.cu",
            CSRC / "masked_istft_nhwc.cu")
+HEADERS = (CSRC / "istft_mma.cuh",)   # included by the sources; in the hash
 BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-ROWS_PER_BLOCK = 128   # K1's BM: (track, frame) rows one block stages at a time
+MAX_K1_FRAMES = 128    # K1: a block's tracks are one pass of 128 (track, frame) rows
 NHWC_TRACKS = 4        # K3's tracks per block, one vector load of the mask
 MAX_SMEM = 232448      # bytes of shared memory one block may use on Hopper
+PRECISIONS = {"default": 0, "highest": 1}   # K1/K2 routes: bf16, 3xTF32
 
 # Launches of K1, K2 and K3 (never of the plain versions); read and reset
 # by callers that need to show the main path went through the kernels.
@@ -58,14 +73,37 @@ bwd_launch_count = 0
 nhwc_launch_count = 0
 
 
+def _check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be 'highest' or 'default', got {precision!r}")
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even), kept in its dtype."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _bases(f: int, device, dtype, precision: str):
+    c, s = basis(f, device, dtype)
+    return (_bf16(c), _bf16(s)) if precision == "default" else (c, s)
+
+
 def masked_istft_plain(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
-                       n_overlap: int = 4) -> torch.Tensor:
+                       n_overlap: int = 4, precision: str = "highest") -> torch.Tensor:
     """Plain PyTorch version: istft_real of the masked spectra, in the
-    dtype of re/im (float32 on the model's path).
+    dtype of re/im (float32 on the model's path). With precision="default"
+    the GEMM operands (re*m, im*m and the bases) are rounded to bf16 and
+    multiplied in that dtype, as K1's bf16 route does.
 
     re, im: (B, n_in, T, F); mask: (B, n_in, TR, T, F) -> (B, n_in, TR, out_len)."""
+    _check_precision(precision)
     mask = mask.to(re.dtype)
-    return istft_real(re[:, :, None] * mask, im[:, :, None] * mask, n_overlap)
+    rm, imm = re[:, :, None] * mask, im[:, :, None] * mask
+    if precision == "default":
+        rm, imm = _bf16(rm), _bf16(imm)
+    f = re.shape[-1]
+    c, s = _bases(f, re.device, re.dtype, precision)
+    return _overlap_add((torch.matmul(rm, c) + torch.matmul(imm, s)) / float(f), n_overlap)
 
 
 def masked_istft(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
@@ -76,22 +114,24 @@ def masked_istft(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
     float32 or bfloat16. Returns (B, n_in, TR, out_len) float32 track
     waveforms, out_len = (T//4)*F - 3*F/4. Trailing frames beyond a multiple
     of n_overlap are dropped, as istft_real does, and get zero gradient.
-    `precision` is accepted for parity with masked_istft_pallas; the
-    kernels run FP32 FMAs for both values.
+    On the card `precision` picks K1's and K2's route: "default" bf16,
+    "highest" 3xTF32; on the CPU the plain version runs in float32 for both.
     """
-    if precision not in ("highest", "default"):
-        raise ValueError(f"precision must be 'highest' or 'default', got {precision!r}")
+    _check_precision(precision)
     if _route(re, im, mask) == "cpu":
         return masked_istft_plain(re, im, mask, n_overlap)
-    return _MaskedISTFT.apply(re, im, mask, n_overlap)
+    return _MaskedISTFT.apply(re, im, mask, n_overlap, precision)
 
 
 def masked_istft_bwd_plain(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
-                           g: torch.Tensor, n_overlap: int = 4):
+                           g: torch.Tensor, n_overlap: int = 4, precision: str = "highest"):
     """Plain PyTorch version of K2, the counterpart of _bwd_xla: the
     gradients (d_re, d_im, d_mask) of masked_istft at output cotangent g
     (B, n_in, TR, out_len). d_re/d_im are float32, d_mask is in the mask's
-    dtype; trailing frames beyond a multiple of n_overlap get zeros."""
+    dtype; trailing frames beyond a multiple of n_overlap get zeros. With
+    precision="default" the GEMM operands (the scaled scattered cotangent
+    and the bases) are rounded to bf16, as K2's bf16 route does."""
+    _check_precision(precision)
     b, n_in, t, f = re.shape
     hop = f // n_overlap
     t_use = (t // n_overlap) * n_overlap
@@ -100,7 +140,9 @@ def masked_istft_bwd_plain(re: torch.Tensor, im: torch.Tensor, mask: torch.Tenso
     # is output sample (t - n_overlap + 1)*hop + n, zero outside [0, out_len)
     gp = F.pad(g / float(n_overlap), (front, t_use * hop - g.shape[-1]))
     gx = gp.unfold(-1, f, hop)[..., :t_use, :] / float(f)   # (B, n_in, TR, t_use, F)
-    c, s = basis(f, re.device, re.dtype)
+    if precision == "default":
+        gx = _bf16(gx)
+    c, s = _bases(f, re.device, re.dtype, precision)
     g_rm = torch.matmul(gx, c)                     # C, S symmetric: C^T = C
     g_im = torch.matmul(gx, s)
     re_u, im_u, m_u = re[:, :, None, :t_use], im[:, :, None, :t_use], mask[..., :t_use, :]
@@ -114,13 +156,14 @@ def masked_istft_bwd_plain(re: torch.Tensor, im: torch.Tensor, mask: torch.Tenso
 
 
 def masked_istft_bwd(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
-                     g: torch.Tensor, n_overlap: int = 4):
+                     g: torch.Tensor, n_overlap: int = 4, precision: str = "highest"):
     """K2's wrapper: the gradients (d_re, d_im, d_mask) of masked_istft at
-    output cotangent g. CUDA tensors launch K2, CPU tensors run
-    masked_istft_bwd_plain."""
+    output cotangent g. CUDA tensors launch K2 on the route `precision`
+    picks; CPU tensors run masked_istft_bwd_plain in float32."""
+    _check_precision(precision)
     if _route(re, im, mask, g) == "cpu":
         return masked_istft_bwd_plain(re, im, mask, g, n_overlap)
-    return _launch_bwd(re, im, mask, g, n_overlap)
+    return _launch_bwd(re, im, mask, g, n_overlap, precision)
 
 
 def masked_istft_nhwc_plain(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
@@ -142,28 +185,30 @@ def masked_istft_nhwc(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
     channels_last output is read in place). Returns (B, TR, out_len)
     float32, what masked_istft returns on the mask made track-major;
     trailing frames beyond a multiple of n_overlap are dropped and get zero
-    gradient."""
-    if precision not in ("highest", "default"):
-        raise ValueError(f"precision must be 'highest' or 'default', got {precision!r}")
+    gradient. K3 runs FP32 FFMA for both values of `precision`; its
+    backward, K2, takes the route `precision` picks."""
+    _check_precision(precision)
     if _route(re, im, mask) == "cpu":
         return masked_istft_nhwc_plain(re, im, mask, n_overlap)
-    return _MaskedISTFTNHWC.apply(re, im, mask, n_overlap)
+    return _MaskedISTFTNHWC.apply(re, im, mask, n_overlap, precision)
 
 
 class _MaskedISTFT(torch.autograd.Function):
-    """K1 forward, K2 backward (the custom VJP of masked_istft_pallas)."""
+    """K1 forward, K2 backward at the same precision (the custom VJP of
+    masked_istft_pallas, whose precision is a nondiff argument)."""
 
     @staticmethod
-    def forward(ctx, re, im, mask, n_overlap):
+    def forward(ctx, re, im, mask, n_overlap, precision):
         ctx.save_for_backward(re, im, mask)
-        ctx.n_overlap = n_overlap
-        return _launch(re, im, mask, n_overlap)
+        ctx.n_overlap, ctx.precision = n_overlap, precision
+        return _launch(re, im, mask, n_overlap, precision)
 
     @staticmethod
     def backward(ctx, g):
         re, im, mask = ctx.saved_tensors
-        d_re, d_im, d_mask = _launch_bwd(re, im, mask, g.contiguous(), ctx.n_overlap)
-        return d_re, d_im, d_mask, None
+        d_re, d_im, d_mask = _launch_bwd(re, im, mask, g.contiguous(), ctx.n_overlap,
+                                         ctx.precision)
+        return d_re, d_im, d_mask, None, None
 
 
 class _MaskedISTFTNHWC(torch.autograd.Function):
@@ -171,9 +216,9 @@ class _MaskedISTFTNHWC(torch.autograd.Function):
     and contiguous, d_mask handed back as an NHWC view in the mask dtype."""
 
     @staticmethod
-    def forward(ctx, re, im, mask, n_overlap):
+    def forward(ctx, re, im, mask, n_overlap, precision):
         ctx.save_for_backward(re, im, mask)
-        ctx.n_overlap = n_overlap
+        ctx.n_overlap, ctx.precision = n_overlap, precision
         return _launch_nhwc(re, im, mask, n_overlap)
 
     @staticmethod
@@ -181,8 +226,8 @@ class _MaskedISTFTNHWC(torch.autograd.Function):
         re, im, mask = ctx.saved_tensors
         mask_tm = mask.permute(0, 3, 1, 2)[:, None].contiguous()
         d_re, d_im, d_mask = _launch_bwd(re[:, None], im[:, None], mask_tm,
-                                         g[:, None].contiguous(), ctx.n_overlap)
-        return d_re[:, 0], d_im[:, 0], d_mask[:, 0].permute(0, 2, 3, 1), None
+                                         g[:, None].contiguous(), ctx.n_overlap, ctx.precision)
+        return d_re[:, 0], d_im[:, 0], d_mask[:, 0].permute(0, 2, 3, 1), None, None
 
 
 def _route(*tensors) -> str:
@@ -225,7 +270,7 @@ def _check_inputs(re, im, mask, n_overlap):
            f"got {tuple(mask.shape)}")
     t_use = (t // n_overlap) * n_overlap
     _check(t_use >= n_overlap, f"needs at least {n_overlap} frames, got {t}")
-    _check(f % (4 * 32) == 0, f"F must be a multiple of 128, got {f}")
+    _check(f % 256 == 0, f"F must be a multiple of 256, got {f}")
     for name, x, align in (("re", re, 16), ("im", im, 16),
                            ("mask", mask, 4 * mask.element_size())):
         _check(x.stride(-1) == 1, f"{name}'s last axis must be contiguous")
@@ -245,23 +290,20 @@ def _raise_on(err: int, lib, what: str):
                            f"({lib.sag_cuda_error_string(err).decode()})")
 
 
-def _launch(re, im, mask, n_overlap):
+def _launch(re, im, mask, n_overlap, precision):
     global launch_count
     b, n_in, tracks, t, t_use, f = _check_inputs(re, im, mask, n_overlap)
+    _check(t_use <= MAX_K1_FRAMES, f"K1 takes at most {MAX_K1_FRAMES} frames, got {t_use}")
     lib = _library()
-    tpb = min(tracks, max(1, ROWS_PER_BLOCK // t_use))
-    smem = lib.sag_masked_istft_smem_bytes(tpb, t_use)
-    _check(smem <= MAX_SMEM, f"T={t_use} frames need {smem} bytes of shared "
-           f"memory per block, more than {MAX_SMEM}")
-    c, s = basis(f, re.device)
+    b_hi, b_lo = mma_basis(f, re.device, "fwd", precision)
     out_len = (t_use // n_overlap) * f - (n_overlap - 1) * (f // n_overlap)
     out = torch.empty((b, n_in, tracks, out_len), dtype=torch.float32,
                       device=re.device)
     stream = torch.cuda.current_stream(re.device)
     err = lib.sag_masked_istft_fwd(
         re.data_ptr(), im.data_ptr(), mask.data_ptr(),
-        int(mask.dtype == torch.bfloat16), c.data_ptr(), s.data_ptr(),
-        out.data_ptr(), b * n_in, tracks, t_use, f, tpb,
+        int(mask.dtype == torch.bfloat16), PRECISIONS[precision],
+        b_hi.data_ptr(), b_lo.data_ptr(), out.data_ptr(), b * n_in, tracks, t_use, f,
         _bn_stride(re), re.stride(2), _bn_stride(im), im.stride(2),
         _bn_stride(mask), mask.stride(2), mask.stride(3),
         _device_index(re), stream.cuda_stream)
@@ -270,7 +312,7 @@ def _launch(re, im, mask, n_overlap):
     return out
 
 
-def _launch_bwd(re, im, mask, g, n_overlap):
+def _launch_bwd(re, im, mask, g, n_overlap, precision):
     global bwd_launch_count
     b, n_in, tracks, t, t_use, f = _check_inputs(re, im, mask, n_overlap)
     out_len = (t_use // n_overlap) * f - (n_overlap - 1) * (f // n_overlap)
@@ -280,10 +322,7 @@ def _launch_bwd(re, im, mask, g, n_overlap):
     _check(g.is_contiguous(), "g must be contiguous")
     _check(g.data_ptr() % 16 == 0, "g must be 16-byte aligned")
     lib = _library()
-    smem = lib.sag_masked_istft_bwd_smem_bytes(t_use)
-    _check(smem <= MAX_SMEM, f"T={t_use} frames need {smem} bytes of shared "
-           f"memory per block, more than {MAX_SMEM}")
-    c, s = basis(f, re.device)
+    b_hi, b_lo = mma_basis(f, re.device, "bwd", precision)
     d_mask = torch.empty(mask.shape, dtype=mask.dtype, device=re.device)
     d_re = torch.empty((b, n_in, t, f), dtype=torch.float32, device=re.device)
     d_im = torch.empty_like(d_re)
@@ -293,7 +332,8 @@ def _launch_bwd(re, im, mask, g, n_overlap):
     stream = torch.cuda.current_stream(re.device)
     err = lib.sag_masked_istft_bwd(
         g.data_ptr(), re.data_ptr(), im.data_ptr(), mask.data_ptr(),
-        int(mask.dtype == torch.bfloat16), c.data_ptr(), s.data_ptr(),
+        int(mask.dtype == torch.bfloat16), PRECISIONS[precision],
+        b_hi.data_ptr(), b_lo.data_ptr(),
         d_mask.data_ptr(), d_re.data_ptr(), d_im.data_ptr(),
         b * n_in, tracks, t_use, t, f,
         _bn_stride(re), re.stride(2), _bn_stride(im), im.stride(2),
@@ -363,7 +403,7 @@ def _find_nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     tag = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         tag.update(src.name.encode() + b"\0" + src.read_bytes())
     return BUILD_DIR / f"libsag_masked_istft_{tag.hexdigest()[:16]}.so"
 
@@ -420,22 +460,18 @@ def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(so))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sag_masked_istft_fwd.argtypes = [
-        ptr, ptr, ptr, i32, ptr, ptr, ptr,          # re im mask bf16 C S out
-        i32, i32, i32, i32, i32,                    # n_bn tracks T F tracks/block
+        ptr, ptr, ptr, i32, i32, ptr, ptr, ptr,     # re im mask bf16 precision B_hi B_lo out
+        i32, i32, i32, i32,                         # n_bn tracks T F
         i64, i64, i64, i64, i64, i64, i64,          # strides
         i32, ptr]                                   # device, stream
     lib.sag_masked_istft_fwd.restype = i32
-    lib.sag_masked_istft_smem_bytes.argtypes = [i32, i32]
-    lib.sag_masked_istft_smem_bytes.restype = i64
     lib.sag_masked_istft_bwd.argtypes = [
-        ptr, ptr, ptr, ptr, i32, ptr, ptr,          # g re im mask bf16 C S
+        ptr, ptr, ptr, ptr, i32, i32, ptr, ptr,     # g re im mask bf16 precision B_hi B_lo
         ptr, ptr, ptr,                              # d_mask d_re d_im
         i32, i32, i32, i32, i32,                    # n_bn tracks T T_total F
         i64, i64, i64, i64, i64, i64, i64,          # strides
         i32, ptr]                                   # device, stream
     lib.sag_masked_istft_bwd.restype = i32
-    lib.sag_masked_istft_bwd_smem_bytes.argtypes = [i32]
-    lib.sag_masked_istft_bwd_smem_bytes.restype = i64
     lib.sag_masked_istft_nhwc_fwd.argtypes = [
         ptr, ptr, ptr, i32, i32, ptr, ptr, ptr,     # re im mask bf16 vec C S out
         i32, i32, i32, i32, i32,                    # n_b tracks T F tracks/block

@@ -27,39 +27,55 @@ def _need_card():
     torch.backends.cudnn.allow_tf32 = False
 
 
+def _rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
 @pytest.mark.parametrize("b, tracks, t, wind, mask_dtype, tol", [
     (2, 32, 28, 1024, torch.float32, (2e-4, 1e-4)),     # flagship track count and T
     (3, 5, 30, 1024, torch.float32, (2e-4, 1e-4)),      # ragged: TR 5, T % 4 == 2
     (2, 32, 28, 1024, torch.bfloat16, (2e-4, 1e-4)),
 ])
-def test_kernel_matches_plain(b, tracks, t, wind, mask_dtype, tol):
-    """Float32 reduction order (tests/test_pallas.py's f32 tolerance) for
-    both mask dtypes: both routes read the same bf16 mask values."""
+def test_kernel_matches_plain(b, tracks, t, wind, mask_dtype, tol, precision):
+    """Each route against the plain version at its precision: "highest"
+    (3xTF32) against the float32 function, "default" (bf16 operands)
+    against the plain version that rounds the same operands; both differ
+    only in float32 summation order (tests/test_pallas.py's f32
+    tolerance), for both mask dtypes, since both routes read the same bf16
+    mask values. "default" also lies 1e-4 to 1e-2 (relative L2) from the
+    float32 function: bf16 ran."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(0)
     re = torch.randn((b, 1, t, wind), generator=gen, device="cuda")
     im = torch.randn((b, 1, t, wind), generator=gen, device="cuda")
     mask = torch.rand((b, 1, tracks, t, wind), generator=gen, device="cuda").to(mask_dtype)
     count = k1.launch_count
-    got = k1.masked_istft(re, im, mask)
+    got = k1.masked_istft(re, im, mask, 4, precision)
     torch.cuda.synchronize()
     assert k1.launch_count == count + 1
-    want = k1.masked_istft_plain(re, im, mask)
+    want = k1.masked_istft_plain(re, im, mask, 4, precision)
     torch.testing.assert_close(got, want, atol=tol[0], rtol=tol[1])
+    if precision == "default":
+        err = _rel_l2(got, k1.masked_istft_plain(re, im, mask, 4, "highest"))
+        assert 1e-4 <= err <= 1e-2, err
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
 @pytest.mark.parametrize("b, tracks, t, wind, mask_dtype, tol", [
     (2, 32, 28, 1024, torch.float32, (5e-4, 1e-4)),     # flagship track count and T
     (3, 5, 30, 1024, torch.float32, (5e-4, 1e-4)),      # ragged: TR 5, T % 4 == 2
     (1, 3, 160, 256, torch.float32, (5e-4, 1e-4)),      # T > 128: frames chunked per track
     (2, 32, 28, 1024, torch.bfloat16, (1e-3, 1e-2)),   # d_mask rounded to bf16 by both
 ])
-def test_bwd_kernel_matches_plain(b, tracks, t, wind, mask_dtype, tol):
-    """K2 against masked_istft_bwd_plain; tolerances of
-    tests/test_pallas.py:142-159 (f32). A bf16 d_mask may round to the
-    neighbouring bf16 value (at most 2^-7 relative): rtol 1e-2."""
+def test_bwd_kernel_matches_plain(b, tracks, t, wind, mask_dtype, tol, precision):
+    """K2 against masked_istft_bwd_plain at the same precision; tolerances
+    of tests/test_pallas.py:142-159 (f32) for both routes (summation order
+    only). A bf16 d_mask may round to the neighbouring bf16 value (at most
+    2^-7 relative): rtol 1e-2. "default" also lies 1e-4 to 1e-2 (relative
+    L2) from the float32 gradients."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(1)
     re = torch.randn((b, 1, t, wind), generator=gen, device="cuda")
@@ -68,34 +84,43 @@ def test_bwd_kernel_matches_plain(b, tracks, t, wind, mask_dtype, tol):
     out_len = (t // 4) * wind - 3 * wind // 4
     g = torch.randn((b, 1, tracks, out_len), generator=gen, device="cuda")
     count = k1.bwd_launch_count
-    got = k1.masked_istft_bwd(re, im, mask, g)
+    got = k1.masked_istft_bwd(re, im, mask, g, 4, precision)
     torch.cuda.synchronize()
     assert k1.bwd_launch_count == count + 1
-    want = k1.masked_istft_bwd_plain(re, im, mask, g)
+    want = k1.masked_istft_bwd_plain(re, im, mask, g, 4, precision)
     assert got[2].dtype == mask_dtype
     for a, w in zip(got, want):
         torch.testing.assert_close(a.float(), w.float(), atol=tol[0], rtol=tol[1])
     if t % 4:
         assert float(got[2][..., (t // 4) * 4:, :].abs().max()) == 0.0
+    if precision == "default":
+        for a, w in zip(got, k1.masked_istft_bwd_plain(re, im, mask, g, 4, "highest")):
+            err = _rel_l2(a, w)
+            assert 1e-4 <= err <= 1e-2, err
 
 
 @pytest.mark.cuda
-def test_autograd_goes_through_both_kernels():
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_autograd_goes_through_both_kernels(precision):
     """masked_istft on CUDA tensors that need gradients: K1 forward, K2
-    backward, the gradients of the plain version's autograd."""
+    backward, the gradients of the plain version's autograd at the same
+    precision. With "default" the gradient is the bf16 plain one and lies
+    1e-4 to 1e-2 from the float32 one: the precision reached K2."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(2)
     re = torch.randn((2, 1, 28, 1024), generator=gen, device="cuda")
     im = torch.randn((2, 1, 28, 1024), generator=gen, device="cuda")
     mask = torch.rand((2, 1, 4, 28, 1024), generator=gen, device="cuda", requires_grad=True)
     counts = k1.launch_count, k1.bwd_launch_count
-    out = k1.masked_istft(re, im, mask)
+    out = k1.masked_istft(re, im, mask, 4, precision)
     w = torch.randn(out.shape, generator=gen, device="cuda")
     (out * w).sum().backward()
     assert (k1.launch_count, k1.bwd_launch_count) == (counts[0] + 1, counts[1] + 1)
-    ref = mask.detach().clone().requires_grad_()
-    (k1.masked_istft_plain(re, im, ref) * w).sum().backward()
-    torch.testing.assert_close(mask.grad, ref.grad, atol=5e-4, rtol=1e-4)
+    want = k1.masked_istft_bwd_plain(re, im, mask.detach(), w, 4, precision)[2]
+    torch.testing.assert_close(mask.grad, want, atol=5e-4, rtol=1e-4)
+    if precision == "default":
+        f32 = k1.masked_istft_bwd_plain(re, im, mask.detach(), w, 4, "highest")[2]
+        assert 1e-4 <= _rel_l2(mask.grad, f32) <= 1e-2
 
 
 def _nhwc_mask(gen, b, tracks, t, wind, dtype):
@@ -131,26 +156,35 @@ def test_nhwc_kernel_matches_plain(b, tracks, t, wind, mask_dtype, tol):
 
 
 @pytest.mark.cuda
-def test_nhwc_autograd_goes_through_k3_and_k2():
-    """masked_istft_nhwc on CUDA tensors that need gradients: K3 forward,
-    K2 backward on the mask made track-major, the plain version's
-    gradients in all three inputs (K2's tolerance, 5e-4 / 1e-4)."""
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_nhwc_autograd_goes_through_k3_and_k2(precision):
+    """masked_istft_nhwc on CUDA tensors that need gradients: K3 forward
+    (FP32 FFMA for both precisions), K2 backward on the mask made
+    track-major at `precision`, the plain version's gradients in all three
+    inputs at that precision (K2's tolerance, 5e-4 / 1e-4); "default"
+    lies 1e-4 to 1e-2 from the float32 gradients."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(5)
     re = torch.randn((2, 30, 1024), generator=gen, device="cuda", requires_grad=True)
     im = torch.randn((2, 30, 1024), generator=gen, device="cuda", requires_grad=True)
     mask = _nhwc_mask(gen, 2, 8, 30, 1024, torch.float32).requires_grad_()
     counts = k1.nhwc_launch_count, k1.bwd_launch_count
-    out = k1.masked_istft_nhwc(re, im, mask)
+    out = k1.masked_istft_nhwc(re, im, mask, 4, precision)
     w = torch.randn(out.shape, generator=gen, device="cuda")
     (out * w).sum().backward()
     assert (k1.nhwc_launch_count, k1.bwd_launch_count) == (counts[0] + 1, counts[1] + 1)
     assert mask.grad.shape == mask.shape
     assert float(mask.grad[:, 28:].abs().max()) == 0.0
-    refs = [x.detach().clone().requires_grad_() for x in (re, im, mask)]
-    (k1.masked_istft_nhwc_plain(*refs) * w).sum().backward()
-    for x, ref in zip((re, im, mask), refs):
-        torch.testing.assert_close(x.grad, ref.grad, atol=5e-4, rtol=1e-4)
+    refs = [x.detach() for x in (re, im)] + [mask.detach().permute(0, 3, 1, 2)[:, None]]
+    for prec in {precision, "highest"}:
+        want = k1.masked_istft_bwd_plain(refs[0][:, None], refs[1][:, None], refs[2],
+                                         w[:, None], 4, prec)
+        want = (want[0][:, 0], want[1][:, 0], want[2][:, 0].permute(0, 2, 3, 1))
+        for x, ref in zip((re, im, mask), want):
+            if prec == precision:
+                torch.testing.assert_close(x.grad, ref, atol=5e-4, rtol=1e-4)
+            else:
+                assert 1e-4 <= _rel_l2(x.grad, ref) <= 1e-2
 
 
 @pytest.mark.cuda
@@ -159,7 +193,7 @@ def test_reduced_nhwc_forward_card_matches_cpu():
     3): the card (K3, channels_last U-Net) against the CPU (K3's plain
     version), relative L2 <= 1e-4; K1 is not launched."""
     _need_card()
-    cfg = SptAudioGenConfig(sep_num_tracks=8, pallas_nhwc=True)
+    cfg = SptAudioGenConfig(sep_num_tracks=8, pallas_nhwc=True, pallas_precision="highest")
     g = cfg.geometry
     model = SptAudioGen(cfg, frame_hw=(64, 128)).init_weights(
         torch.Generator().manual_seed(0)).eval()
@@ -179,10 +213,11 @@ def test_reduced_nhwc_forward_card_matches_cpu():
 @pytest.mark.cuda
 def test_reduced_flagship_forward_card_matches_cpu():
     """Audio + video, unet_mask with 8 tracks, 64x128 frames, batch 3: the
-    card (through K1) against the CPU (through the plain version), relative
-    L2 <= 1e-4 (float32 reduction order in cuDNN, cuBLAS and K1)."""
+    card (through K1's 3xTF32 route, pallas_precision="highest") against
+    the CPU (through the plain version), relative L2 <= 1e-4 (float32
+    reduction order in cuDNN, cuBLAS and K1)."""
     _need_card()
-    cfg = SptAudioGenConfig(sep_num_tracks=8)
+    cfg = SptAudioGenConfig(sep_num_tracks=8, pallas_precision="highest")
     g = cfg.geometry
     model = SptAudioGen(cfg, frame_hw=(64, 128)).init_weights(
         torch.Generator().manual_seed(0)).eval()
@@ -203,14 +238,15 @@ def test_reduced_flagship_forward_card_matches_cpu():
 @pytest.mark.cuda
 def test_reduced_flagship_train_step_card_matches_cpu():
     """One train step of the reduced flagship (8 tracks, 64x128 frames,
-    batch 3) on the card (K1 and K2) and on the CPU from the same weights:
-    loss and flattened gradient at relative 1e-4."""
+    batch 3) on the card (K1 and K2, pallas_precision="highest": 3xTF32)
+    and on the CPU from the same weights: loss and flattened gradient at
+    relative 1e-4."""
     _need_card()
     from spatialaudiogen_tpu_torch.train.lr import make_optimizer
     from spatialaudiogen_tpu_torch.train.state import TrainState
     from spatialaudiogen_tpu_torch.train.steps import train_step
 
-    cfg = SptAudioGenConfig(sep_num_tracks=8)
+    cfg = SptAudioGenConfig(sep_num_tracks=8, pallas_precision="highest")
     g = cfg.geometry
     gen = torch.Generator().manual_seed(3)
     batch = {"ambix": 0.1 * torch.randn((3, g.snd_size, 4), generator=gen),

@@ -14,6 +14,7 @@ import torch
 from spatialaudiogen_tpu.ops.dft import stft_real as jax_stft_real
 from spatialaudiogen_tpu.ops.pallas_kernels import masked_istft_pallas, masked_istft_reference
 from spatialaudiogen_tpu_torch.ops import masked_istft as k1
+from spatialaudiogen_tpu_torch.ops.dft import basis, mma_basis
 
 
 def _inputs(b=2, n_in=1, tracks=3, wind=256, seed=0):
@@ -80,3 +81,173 @@ def test_library_path_follows_the_source():
     path = k1.library_path()
     assert path.parent == k1.BUILD_DIR and path.suffix == ".so"
     assert path == k1.library_path()
+
+
+# ---------------------------------------------------------------------------
+# precision="default": the plain version of K1's bf16 route
+
+
+def _jax_bf16_istft(re, im, mask):
+    """JAX's masked_istft_reference with its two GEMM operands (the masked
+    spectra and the bases) rounded to bf16: exact bf16 products summed in
+    float32, then the JAX package's comb overlap-add."""
+    from spatialaudiogen_tpu.ops.dft import _basis as jax_basis, _overlap_add as jax_ola
+
+    f = re.shape[-1]
+    c, s = (jnp.asarray(x).astype(jnp.bfloat16) for x in jax_basis(f))
+    rm = (jnp.asarray(re)[:, :, None] * jnp.asarray(mask)).astype(jnp.bfloat16)
+    imm = (jnp.asarray(im)[:, :, None] * jnp.asarray(mask)).astype(jnp.bfloat16)
+    x = (jnp.matmul(rm, c, preferred_element_type=jnp.float32)
+         + jnp.matmul(imm, s, preferred_element_type=jnp.float32)) / float(f)
+    return np.asarray(jax_ola(x, 4))
+
+
+def test_plain_default_matches_jax_on_bf16_operands():
+    """Both round the same float32 products and bases to bf16 and sum exact
+    products in float32: only the summation order differs."""
+    re, im, mask = _inputs(b=2, tracks=3, wind=256, seed=11)
+    want = _jax_bf16_istft(re, im, mask)
+    got = k1.masked_istft_plain(*_torch(re, im, mask), 4, "default").numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=1e-5)
+
+
+def test_plain_default_is_bf16_away_from_f32():
+    """bf16 operands put the output about 2e-3 (relative L2) from the
+    float32 function, the TPU's DEFAULT (53 dB); below 1e-4 nothing was
+    rounded, above 1e-2 something else went wrong."""
+    args = _torch(*_inputs(b=2, tracks=3, wind=256, seed=12))
+    f32 = k1.masked_istft_plain(*args, 4, "highest")
+    bf16 = k1.masked_istft_plain(*args, 4, "default")
+    err = float((bf16 - f32).norm() / f32.norm())
+    assert 1e-4 <= err <= 1e-2, err
+
+
+def test_cpu_route_ignores_pallas_precision():
+    """On the CPU, masked_istft and the model run float32 whatever
+    pallas_precision says, as the JAX model's non-Pallas branch does: a
+    reduced model's forward is the same bit for bit under both values."""
+    from spatialaudiogen_tpu_torch.config import SptAudioGenConfig
+    from spatialaudiogen_tpu_torch.models.sptaudiogen import SptAudioGen
+
+    args = _torch(*_inputs(tracks=2, wind=256, seed=13))
+    assert torch.equal(k1.masked_istft(*args, 4, "default"),
+                       k1.masked_istft_plain(*args, 4, "highest"))
+    gen = torch.Generator().manual_seed(1)
+    out = {}
+    for precision in ("default", "highest"):
+        cfg = SptAudioGenConfig(sep_num_tracks=2, pallas_precision=precision)
+        g = cfg.geometry
+        if not out:
+            audio = 0.1 * torch.randn((1, g.snd_size, 1), generator=gen)
+            video = torch.rand((1, g.vid_dur, 32, 64, 3), generator=gen) - 0.5
+        model = SptAudioGen(cfg, frame_hw=(32, 64)).init_weights(
+            torch.Generator().manual_seed(0)).eval()
+        with torch.no_grad():
+            out[precision] = model(audio, video)
+    assert torch.equal(out["default"], out["highest"])
+
+
+# ---------------------------------------------------------------------------
+# The laid-out bases (ops/dft.py:mma_basis) read the way K1's wgmma reads
+# them (ops/csrc/istft_mma.cuh)
+
+
+def _wgmma_b(image: torch.Tensor, n_wgmmas: int) -> np.ndarray:
+    """One step's B tiles, (wgmma, k, column), from its shared-memory image
+    read through the kernels' descriptor: K-major, no swizzle, core matrix
+    (columns 8 nb.., k chunk kc) at kc * 4096 + nb * 128 bytes, column i of
+    the core at i * 16, value e at e * element size."""
+    raw = image.contiguous().view(torch.uint8).numpy()
+    esize = image.element_size()
+    n_e = 16 // esize
+    out = np.empty((n_wgmmas, 2 * n_e, 256), np.float32)
+    vals = image.float().numpy().reshape(-1)
+    for h in range(n_wgmmas):
+        for kk in range(2 * n_e):
+            kc, e = divmod(kk, n_e)
+            n = np.arange(256)
+            byte = h * 8192 + kc * 4096 + (n // 8) * 128 + (n % 8) * 16 + e * esize
+            out[h, kk] = vals[byte // esize]
+    assert raw.size == n_wgmmas * 8192
+    return out
+
+
+def _wgmma_a(values: np.ndarray, n_wgmmas: int) -> np.ndarray:
+    """The logical A of each wgmma of a step, (rows, wgmma, k), from the
+    values a thread stages, (rows, tig, slot 0..7), packed as the kernels'
+    Step<P>::run packs its registers into the wgmma A fragment (bf16 k16:
+    k 2 tig + (0, 1) from slots 2h + (0, 1), k 2 tig + 8 + (0, 1) from
+    slots 4 + 2h + (0, 1); tf32 k8: k tig from slot h, k tig + 4 from slot
+    4 + h)."""
+    rows = values.shape[0]
+    n_k = 16 if n_wgmmas == 2 else 8
+    out = np.empty((rows, n_wgmmas, n_k), values.dtype)
+    for h in range(n_wgmmas):
+        for kk in range(n_k):
+            if n_k == 16:
+                half, rest = divmod(kk, 8)
+                tig, slot = rest // 2, 4 * half + 2 * h + rest % 2
+            else:
+                half, tig = divmod(kk, 4)
+                slot = 4 * half + h
+            out[:, h, kk] = values[:, tig, slot]
+    return out
+
+
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_k1_basis_layout_gives_the_gemm(precision):
+    """K1's GEMM emulated step by step from the laid-out bases and the A
+    fragments (mask applied as staged) equals (re*m) @ C + (im*m) @ S at
+    the block's 256 columns {q*hop + 64 tile + rr}."""
+    f, t, tile = 512, 8, 1
+    hop = f // 4
+    rng = np.random.RandomState(14)
+    re, im, m = (rng.randn(t, f).astype(np.float32) for _ in range(3))
+    n_w = 2 if precision == "default" else 4
+    step_bytes = n_w * 8192
+    hi_t, lo_t = (x.view(-1) for x in mma_basis(f, "cpu", "fwd", precision))
+    per_tile = hi_t.numel() // (hop // 64)
+    acc = np.zeros((t, 256), np.float64)
+    for s in range(f // 16):
+        freqs = 16 * s + 4 * np.arange(4)[:, None] + np.arange(4)[None]   # (tig, j)
+        vals = np.concatenate([re[:, freqs] * m[:, freqs], im[:, freqs] * m[:, freqs]], -1)
+        a = _wgmma_a(vals.astype(np.float64), n_w)
+        n_el = step_bytes // hi_t.element_size()
+        sl = slice(tile * per_tile + s * n_el, tile * per_tile + (s + 1) * n_el)
+        b = _wgmma_b(hi_t[sl], n_w)
+        if precision == "highest":
+            b = b + _wgmma_b(lo_t[sl], n_w)
+        acc += np.einsum("rhk,hkn->rn", a, b)
+    c, s_ = basis(f, "cpu")
+    cols = (np.arange(256) // 64) * hop + 64 * tile + np.arange(256) % 64
+    want = (re * m) @ c.numpy()[:, cols] + (im * m) @ s_.numpy()[:, cols]
+    tol = 2e-2 if precision == "default" else 1e-5
+    np.testing.assert_allclose(acc, want, atol=tol * np.abs(want).max(), rtol=0)
+
+
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_k2_basis_layout_gives_the_gemm(precision):
+    """K2's GEMM emulated the same way: A the scattered cotangent (slot
+    (half, tig, j) is sample 32 s + 16 half + 4 tig + j of the frame), B
+    the laid-out [C | S] tile of the block's 128 output frequencies."""
+    f, rows, tile = 512, 6, 2
+    gx = np.random.RandomState(15).randn(rows, f).astype(np.float32)
+    n_w = 2 if precision == "default" else 4
+    hi_t, lo_t = (x.view(-1) for x in mma_basis(f, "cpu", "bwd", precision))
+    per_tile = hi_t.numel() // (f // 128)
+    n_el = n_w * 8192 // hi_t.element_size()
+    acc = np.zeros((rows, 256), np.float64)
+    for s in range(f // 32):
+        n = 32 * s + 4 * np.arange(4)[:, None] + np.arange(4)[None]        # (tig, j)
+        vals = np.concatenate([gx[:, n], gx[:, n + 16]], -1).astype(np.float64)
+        sl = slice(tile * per_tile + s * n_el, tile * per_tile + (s + 1) * n_el)
+        b = _wgmma_b(hi_t[sl], n_w)
+        if precision == "highest":
+            b = b + _wgmma_b(lo_t[sl], n_w)
+        acc += np.einsum("rhk,hkn->rn", _wgmma_a(vals, n_w), b)
+    c, s_ = basis(f, "cpu")
+    cols = 128 * tile + np.arange(128)
+    want = np.concatenate([gx @ c.numpy()[:, cols], gx @ s_.numpy()[:, cols]], -1)
+    tol = 2e-2 if precision == "default" else 1e-5
+    np.testing.assert_allclose(acc, want, atol=tol * np.abs(want).max(), rtol=0)

@@ -141,16 +141,85 @@ def test_wrapper_runs_the_plain_backward_on_cpu_tensors():
 
 
 def test_library_hash_covers_every_source(tmp_path, monkeypatch):
-    """Every .cu file feeds the library's name: editing any one rebuilds."""
+    """Every .cu file and the header they include feed the library's
+    name: editing any one rebuilds."""
     assert [s.name for s in k.SOURCES] == ["masked_istft.cu", "masked_istft_bwd.cu",
                                            "masked_istft_nhwc.cu"]
+    assert [s.name for s in k.HEADERS] == ["istft_mma.cuh"]
     before = k.library_path()
-    for i, src in enumerate(k.SOURCES):
-        copy = tmp_path / src.name
-        copy.write_bytes(src.read_bytes() + b"\n// edited\n")
-        sources = list(k.SOURCES)
-        sources[i] = copy
-        monkeypatch.setattr(k, "SOURCES", tuple(sources))
-        assert k.library_path() != before
-        monkeypatch.undo()
+    for attr in ("SOURCES", "HEADERS"):
+        for i, src in enumerate(getattr(k, attr)):
+            copy = tmp_path / src.name
+            copy.write_bytes(src.read_bytes() + b"\n// edited\n")
+            files = list(getattr(k, attr))
+            files[i] = copy
+            monkeypatch.setattr(k, attr, tuple(files))
+            assert k.library_path() != before
+            monkeypatch.undo()
     assert k.library_path() == before
+
+
+# ---------------------------------------------------------------------------
+# precision="default": the plain version of K2's bf16 route
+
+
+def _bwd_case(seed, tracks=3, wind=256):
+    re, im, mask = _inputs(b=1, tracks=tracks, wind=wind, seed=seed)
+    t = re.shape[2]
+    g = np.random.RandomState(seed + 1).randn(1, 1, tracks, (t // 4) * wind - 3 * wind // 4)
+    return re, im, mask, g.astype(np.float32)
+
+
+def _jax_bf16_bwd(re, im, mask, g):
+    """_bwd_xla with its GEMM operands (the scaled scattered cotangent and
+    the bases) rounded to bf16: exact bf16 products summed in float32."""
+    from spatialaudiogen_tpu.ops.dft import _basis as jax_basis
+
+    f = re.shape[-1]
+    hop, t = f // 4, re.shape[2]
+    gp = jnp.pad(jnp.asarray(g) / 4.0, ((0, 0), (0, 0), (0, 0), (3 * hop, t * hop - g.shape[-1])))
+    gx = jnp.stack([gp[..., i * hop: i * hop + f] for i in range(t)], -2) / float(f)
+    gx = gx.astype(jnp.bfloat16)
+    c, s = (jnp.asarray(x).astype(jnp.bfloat16) for x in jax_basis(f))
+    g_rm = jnp.matmul(gx, c, preferred_element_type=jnp.float32)
+    g_im = jnp.matmul(gx, s, preferred_element_type=jnp.float32)
+    d_mask = g_rm * re[:, :, None] + g_im * im[:, :, None]
+    return [np.asarray(x) for x in (jnp.sum(g_rm * mask, 2), jnp.sum(g_im * mask, 2), d_mask)]
+
+
+def test_bwd_plain_default_matches_jax_on_bf16_operands():
+    """Both round the same scaled cotangent and bases to bf16 and sum exact
+    products in float32: only the summation order differs."""
+    re, im, mask, g = _bwd_case(16)
+    want = _jax_bf16_bwd(re, im, mask, g)
+    got = k.masked_istft_bwd_plain(*_torch(re, im, mask, g), 4, "default")
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        np.testing.assert_allclose(a.numpy(), w, atol=1e-6, rtol=1e-5)
+
+
+def test_bwd_plain_default_is_bf16_away_from_f32():
+    """Each gradient lies 1e-4 to 1e-2 (relative L2) from the float32 one."""
+    args = _torch(*_bwd_case(17))
+    f32 = k.masked_istft_bwd_plain(*args, 4, "highest")
+    bf16 = k.masked_istft_bwd_plain(*args, 4, "default")
+    for a, w in zip(bf16, f32):
+        err = float((a - w).norm() / w.norm())
+        assert 1e-4 <= err <= 1e-2, err
+
+
+def test_bwd_cpu_route_ignores_precision():
+    """On the CPU the backward runs float32 for both values of precision:
+    K2's wrapper and autograd through masked_istft give the float32
+    plain gradients bit for bit."""
+    re, im, mask, g = _torch(*_bwd_case(18))
+    want = k.masked_istft_bwd_plain(re, im, mask, g, 4, "highest")
+    for a, w in zip(k.masked_istft_bwd(re, im, mask, g, 4, "default"), want):
+        assert torch.equal(a, w)
+    grads = {}
+    for precision in ("default", "highest"):
+        args = [x.clone().requires_grad_() for x in (re, im, mask)]
+        (k.masked_istft(*args, 4, precision) * g).sum().backward()
+        grads[precision] = [x.grad for x in args]
+    for a, b_ in zip(*grads.values()):
+        assert torch.equal(a, b_)
