@@ -13,16 +13,17 @@ fails (non-zero exit) on the first phase that goes wrong:
   2. build: the kernels (K1, the fused masked comb-ISTFT; K2, its fused
      backward; K3, K1 over an NHWC mask) from the checkout's sources, one
      nvcc per source started together, with nvcc's register/spill report;
-  3. kernels: K1 and K2 at both pallas_precision routes ("default": bf16
-     wgmma; "highest": 3xTF32 wgmma) against their plain versions at the
-     same precision, at the flagship shapes and a ragged one with f32 and
-     bf16 masks, the bf16 route 1e-4 to 1e-2 from float32, 3xTF32 on
-     mixed-scale inputs ten times nearer a float64 run than one TF32
-     pass; K3 (FP32 FFMA) against its plain version on the cropped
-     channels_last mask, and its backward; median
-     times (CUDA events) of each kernel, its plain version, a bare
-     torch.matmul of the same GEMM in the route's type, and each route's
-     bound;
+  3. kernels: K1, K2 and K3 at both pallas_precision routes ("default":
+     bf16 wgmma; "highest": 3xTF32 wgmma) against their plain versions at
+     the same precision, at the flagship shapes and a ragged one with f32
+     and bf16 masks (K3 on the cropped channels_last mask, read in place:
+     its vector and its scalar route), the bf16 route 1e-4 to 1e-2 from
+     float32, 3xTF32 on mixed-scale inputs ten times nearer a float64 run
+     than one TF32 pass; K3 within 1e-6 of K1 on the mask made
+     track-major, and K3's backward; median times (CUDA events) of each
+     kernel, its plain version, a bare torch.matmul of the same GEMM in
+     the route's type, each route's bound, and for K3 K1 on the mask made
+     track-major (copy included);
   4. deploy: MonoToAmbix.deploy over 2 s of a 4 s clip at batch 16 on the
      card (shape, finiteness, W passthrough bit for bit, K1 launched), and
      the same params on the CPU over 0.5 s against the card at
@@ -31,9 +32,11 @@ fails (non-zero exit) on the first phase that goes wrong:
      for the NCHW and NHWC layouts in f32 and for bf16, and a profile of
      each batch-128 forward by kernel family;
   6. NHWC path: the flagship forward with pallas_nhwc=True against the
-     default one at the same weights (K1 on 3xTF32; K3 launched once, K1
-     never), and one flagship train step at batch 32 on it (K3 and K2
-     launched);
+     default layout at the same weights, both at "highest" (<= 1e-5) and
+     both at "default" (at most a tenth of the NCHW forward's own
+     "default"-vs-"highest" gap: K3 rounds as K1 does), K3 launched once
+     and K1 never; then one flagship train step at batch 32 on the
+     model's default (K3 and K2 launched once each);
   7. train: cli.train for 6 steps at batch 32 over a packed two-clip
      dataset (finite losses, K1 and K2 launched on every step, params
      moved), then MonoToAmbix deploys the trained model on the card;
@@ -49,11 +52,11 @@ fails (non-zero exit) on the first phase that goes wrong:
 The kernel counts are set to 0 just before each main-path run (deploy,
 the NHWC forward and train step, the f32 and bf16 trainings) and read just
 after it. Everything else runs the model's default pallas_precision,
-"default" (K1 and K2 on bf16). The second-to-last line is a JSON object
-describing the kernels (K1's and K2's launches are those of the f32
-training, their top-level times the bf16 route's and the 3xTF32 route's
-under "highest"; K3's launches those of the NHWC train step, with the
-NHWC forward's count under "forward_launches"); the last is
+"default" (K1, K2 and K3 on bf16). The second-to-last line is a JSON
+object describing the kernels (top-level times the bf16 route's, the
+3xTF32 route's under "highest"; K1's and K2's launches are those of the
+f32 training, K3's those of the NHWC train step, with the NHWC forward's
+count under "forward_launches"); the last is
 {"ok": true, "device": {...}}. Without a CUDA card the
 script exits non-zero and prints no result. Scratch files go to
 .chip_smoke/ in the checkout and are removed at the end.
@@ -88,12 +91,12 @@ TRAIN_STEPS = 6
 K1_REPLACES = "spatialaudiogen_tpu/ops/pallas_kernels.py:47"
 K2_REPLACES = "spatialaudiogen_tpu/ops/pallas_kernels.py:141"
 K3_REPLACES = "spatialaudiogen_tpu/ops/pallas_kernels.py:333"
-PRECISIONS = ("default", "highest")   # K1/K2 routes: bf16 wgmma, 3xTF32 wgmma
-# H100 SXM published peaks (dense): bf16 and TF32 on the tensor cores,
-# float32 outside them, and device-memory bandwidth. A route's bound is the
+PRECISIONS = ("default", "highest")   # kernel routes: bf16 wgmma, 3xTF32 wgmma
+# H100 SXM published peaks (dense): bf16 and TF32 on the tensor cores, and
+# device-memory bandwidth. A route's bound is the
 # larger of its operations over its peak (3xTF32: three TF32 passes) and
 # its bytes over the bandwidth.
-ROUTE_FLOPS = {"default": 989e12, "highest": 495e12 / 3, "fp32": 67e12}
+ROUTE_FLOPS = {"default": 989e12, "highest": 495e12 / 3}
 HBM_BYTES_PER_S = 3.35e12
 
 
@@ -386,11 +389,15 @@ def nhwc_mask(gen, b, tracks, t, f, dtype, height, start):
 
 
 def nhwc_kernel_phase(card: str) -> dict:
-    """K3 against masked_istft_nhwc_plain at the flagship shapes (batch 16)
-    and a ragged shape (5 tracks: scalar mask loads; T % 4 == 2), forward
-    (f32 and bf16 masks) and backward (f32); tolerances of
-    tests/test_pallas.py's f32 forward for both mask dtypes, since both
-    routes read the same bf16 values."""
+    """K3 against masked_istft_nhwc_plain at both precisions, on the cropped
+    channels_last mask read in place, at the flagship shapes (batch 16: the
+    vector route, 4 tracks a load) and a ragged shape (5 tracks: the scalar
+    route; T % 4 == 2), f32 and bf16 masks; K1's tolerances and checks
+    (kernel_phase), and K3 within 1e-6 of K1 on the mask made track-major
+    (K3 keeps K1's rows, k order, bases and epilogue). k1_ms times that
+    K1 call at the same precision, the track-major copy included. The
+    backward (K2 on the track-major mask, f32 masks, "highest") against
+    plain autograd."""
     from spatialaudiogen_tpu_torch.config import SptAudioGenConfig
     from spatialaudiogen_tpu_torch.models.sptaudiogen import AUDIO_KERNELS, AUDIO_STRIDES
     from spatialaudiogen_tpu_torch.ops import masked_istft as k
@@ -400,47 +407,70 @@ def nhwc_kernel_phase(card: str) -> dict:
     height = (g.deconv1_in_hi - g.deconv1_in_lo) * sh + kh - sh   # narrowed deconv1 frames
     flagship = (16, TRACKS, g.n_mask_frames, g.wind_size, height, g.narrowed_deconv_ss)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
-    cases = [  # name, (B, TR, T, F, deconv frames, crop start), mask dtype, atol, rtol
-        ("flagship f32", flagship, torch.float32, 2e-4, 1e-4),
-        ("flagship bf16 mask", flagship, torch.bfloat16, 2e-4, 1e-4),
-        ("ragged f32", (3, 5, 30, 1024, 36, 2), torch.float32, 2e-4, 1e-4),
-        ("ragged bf16 mask", (3, 5, 30, 1024, 36, 2), torch.bfloat16, 2e-4, 1e-4),
+    cases = [  # name, (B, TR, T, F, deconv frames, crop start), mask dtype, vector route
+        ("flagship f32", flagship, torch.float32, True),
+        ("flagship bf16 mask", flagship, torch.bfloat16, True),
+        ("ragged f32", (3, 5, 30, 1024, 36, 2), torch.float32, False),
+        ("ragged bf16 mask", (3, 5, 30, 1024, 36, 2), torch.bfloat16, False),
     ]
+    atol, rtol = 2e-4, 1e-4
     result = {}
-    for name, shape, dtype, atol, rtol in cases:
+    for name, shape, dtype, vector in cases:
         b, tracks, t, f, height, start = shape
         re = torch.randn((b, t, f), generator=gen, device=DEVICE)
         im = torch.randn((b, t, f), generator=gen, device=DEVICE)
         mask = nhwc_mask(gen, b, tracks, t, f, dtype, height, start)
+        route = "vector" if k.nhwc_vector_route(mask, (t // 4) * 4) else "scalar"
+        if (route == "vector") != vector:
+            raise AssertionError(f"K3 {name}: took the {route} route")
+
+        def k1_track_major(precision):
+            tm = mask.permute(0, 3, 1, 2)[:, None].contiguous()
+            return k.masked_istft(re[:, None], im[:, None], tm, 4, precision)[:, 0]
+
         with torch.no_grad():
-            got = k.masked_istft_nhwc(re, im, mask)
-            want = k.masked_istft_nhwc_plain(re, im, mask)
-            torch.cuda.synchronize()
-            if got.shape != want.shape:
-                raise AssertionError(f"K3 {name}: shape {tuple(got.shape)} != "
-                                     f"plain {tuple(want.shape)}")
-            err = float((got - want).abs().max())
-            ok = bool(torch.allclose(got, want, atol=atol, rtol=rtol))
-            ms = time_ms(lambda: k.masked_istft_nhwc(re, im, mask))
-            plain_ms = time_ms(lambda: k.masked_istft_nhwc_plain(re, im, mask))
-            k1_ms = time_ms(lambda: k.masked_istft(
-                re[:, None], im[:, None], mask.permute(0, 3, 1, 2)[:, None].contiguous()))
-        flops, spectra, mask_bytes, _ = istft_work(re[:, None], mask.permute(0, 3, 1, 2)[:, None],
-                                                   "fp32")
-        bound_ms, bound_by = bound(flops, spectra + mask_bytes + got.numel() * 4, "fp32")
-        log(f"K3 {name} (B, TR, T, F) {shape[:4]}, mask strides {mask.stride()}: "
-            f"max|kernel - plain| {err:.3e} (atol {atol:g}, rtol {rtol:g}) -> "
-            f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain (cuBLAS) {plain_ms:.3f} ms, "
-            f"K1 on the mask made track-major (copy included) {k1_ms:.3f} ms, bound "
-            f"{bound_ms:.3f} ms by {bound_by} [{card}]")
-        if not ok:
-            raise AssertionError(f"K3 {name} disagrees with its plain version")
-        result[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "k1_ms": k1_ms,
-                        "bound_ms": bound_ms, "bound_by": bound_by}
+            want_f32 = k.masked_istft_nhwc_plain(re, im, mask)
+            for precision in PRECISIONS:
+                got = k.masked_istft_nhwc(re, im, mask, 4, precision)
+                want = k.masked_istft_nhwc_plain(re, im, mask, 4, precision)
+                k1_err = float((got - k1_track_major(precision)).abs().max())
+                torch.cuda.synchronize()
+                if got.shape != want.shape:
+                    raise AssertionError(f"K3 {name}: shape {tuple(got.shape)} != "
+                                         f"plain {tuple(want.shape)}")
+                err = float((got - want).abs().max())
+                ok = bool(torch.allclose(got, want, atol=atol, rtol=rtol))
+                ms = time_ms(lambda: k.masked_istft_nhwc(re, im, mask, 4, precision))
+                plain_ms = time_ms(lambda: k.masked_istft_nhwc_plain(re, im, mask, 4,
+                                                                     precision))
+                k1_ms = time_ms(lambda: k1_track_major(precision))
+                flops, spectra, mask_bytes, rows = istft_work(
+                    re[:, None], mask.permute(0, 3, 1, 2)[:, None], precision)
+                bound_ms, bound_by = bound(flops, spectra + mask_bytes + got.numel() * 4,
+                                           precision)
+                g_ms = gemm_ms(rows, f, precision)
+                log(f"K3 {name} (B, TR, T, F) {shape[:4]} {precision}, {route} route, mask "
+                    f"strides {mask.stride()}: max|kernel - plain| {err:.3e} (atol {atol:g}, "
+                    f"rtol {rtol:g}) -> {'ok' if ok else 'FAIL'}, max|K3 - K1 on the "
+                    f"track-major mask| {k1_err:.3e} (limit 1e-6); kernel {ms:.3f} ms, plain "
+                    f"{plain_ms:.3f} ms, K1 on the mask made track-major (copy included) "
+                    f"{k1_ms:.3f} ms, gemm {g_ms:.3f} ms, bound {bound_ms:.3f} ms by "
+                    f"{bound_by} [{card}]")
+                if not ok:
+                    raise AssertionError(f"K3 {name} {precision} disagrees with its plain "
+                                         f"version")
+                if not k1_err <= 1e-6:
+                    raise AssertionError(f"K3 {name} {precision} is {k1_err:.3e} from K1 on "
+                                         f"the track-major mask")
+                entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "k1_ms": k1_ms,
+                         "gemm_ms": g_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+                if precision == "default":
+                    entry["rel_l2_f32"] = check_default_route(f"K3 {name}", got, want_f32)
+                result[name, precision] = entry
         if dtype != torch.float32:
             continue
         # backward: K2 on the mask made track-major, against plain autograd
-        w = torch.randn(got.shape, generator=gen, device=DEVICE)
+        w = torch.randn(want_f32.shape, generator=gen, device=DEVICE)
         grads = {}
         for route, fn in (("kernel", k.masked_istft_nhwc), ("plain", k.masked_istft_nhwc_plain)):
             args = [x.detach().clone().requires_grad_() for x in (re, im)]
@@ -457,6 +487,13 @@ def nhwc_kernel_phase(card: str) -> dict:
             raise AssertionError(f"K3 {name}: gradients disagree with the plain version's")
         if t % 4 and float(grads["kernel"][2][:, (t // 4) * 4:].abs().max()) != 0.0:
             raise AssertionError(f"K3 {name}: dropped frames got a gradient")
+    b, tracks, t, f, height, start = flagship
+    re, im = (mixed_scale(torch.randn((2, t, f), generator=gen, device=DEVICE), gen)
+              for _ in range(2))
+    mask = nhwc_mask(gen, 2, 8, t, f, torch.float32, height, start)
+    with torch.no_grad():
+        check_3xtf32("K3", k.masked_istft_nhwc(re, im, mask, 4, "highest"),
+                     k.masked_istft_nhwc_plain, (re, im, mask))
     return result
 
 
@@ -716,37 +753,55 @@ def nhwc_path_phase(card: str) -> dict:
     from spatialaudiogen_tpu_torch.train.state import TrainState
     from spatialaudiogen_tpu_torch.train.steps import train_step
 
-    # K1 on its 3xTF32 route, so the two layouts agree to float32 order
-    nchw = flagship_model(pallas_precision="highest").eval()
-    nhwc = flagship_model(pallas_nhwc=True).eval()
-    g = nhwc.cfg.geometry
-    audio, video = forward_inputs(torch.Generator(device=DEVICE).manual_seed(SEED + 5),
-                                  DEPLOY_BATCH, g)
-    taps = {}
-    k.launch_count = k.bwd_launch_count = k.nhwc_launch_count = 0
-    with torch.no_grad():
-        got = nhwc(audio, video, taps=taps)
-    torch.cuda.synchronize()
-    fwd = (k.launch_count, k.nhwc_launch_count)
-    with torch.no_grad():
-        want = nchw(audio, video)
-    err = rel_l2(got.cpu(), want.cpu())
-    mask = taps["mask"]
-    log(f"NHWC forward (flagship, batch {DEPLOY_BATCH}, TF32 off): K1 launches {fwd[0]}, "
-        f"K3 launches {fwd[1]}; mask {tuple(mask.shape)} strides {mask.stride()}; relative "
-        f"L2 to the NCHW forward at the same weights {err:.3e} (limit 1e-5)")
-    if fwd != (0, 1):
-        raise AssertionError(f"the NHWC forward launched K1 {fwd[0]} and K3 {fwd[1]} times")
+    # both layouts at both routes, same weights and inputs. At "highest"
+    # (K1 and K3 on 3xTF32) they agree to float32 order; at the model's
+    # default, "default" (both on bf16), they lie far nearer each other than
+    # either lies from "highest": K3 rounds what K1 rounds.
+    outs = {}
+    for layout, fields in (("NCHW", {}), ("NHWC", {"pallas_nhwc": True})):
+        for precision in PRECISIONS:
+            model = flagship_model(pallas_precision=precision, **fields).eval()
+            if not outs:
+                audio, video = forward_inputs(
+                    torch.Generator(device=DEVICE).manual_seed(SEED + 5), DEPLOY_BATCH,
+                    model.cfg.geometry)
+            taps = {}
+            k.launch_count = k.bwd_launch_count = k.nhwc_launch_count = 0
+            with torch.no_grad():
+                outs[layout, precision] = model(audio, video, taps=taps)
+            torch.cuda.synchronize()
+            launched = (k.launch_count, k.nhwc_launch_count)
+            if launched != ((0, 1) if layout == "NHWC" else (1, 0)):
+                raise AssertionError(f"the {layout} forward ({precision}) launched K1 "
+                                     f"{launched[0]} and K3 {launched[1]} times")
+            if layout == "NHWC" and precision == "default":   # the model's default
+                fwd, mask, nhwc = launched, taps["mask"], model
+            else:
+                del model
+    log(f"NHWC forward (flagship, batch {DEPLOY_BATCH}, model default): K1 launches "
+        f"{fwd[0]}, K3 launches {fwd[1]}; mask {tuple(mask.shape)} strides {mask.stride()}")
     if mask.stride(2) != 1:
         raise AssertionError(f"the NHWC forward's mask is not channels_last: {mask.stride()}")
-    if not (got.shape == want.shape and torch.isfinite(got).all() and err <= 1e-5):
-        raise AssertionError(f"NHWC and NCHW forwards disagree: relative L2 {err:.3e}")
-    del nchw, audio, video, taps, mask
+    err = rel_l2(outs["NHWC", "highest"].cpu(), outs["NCHW", "highest"].cpu())
+    gap = rel_l2(outs["NCHW", "default"].cpu(), outs["NCHW", "highest"].cpu())
+    err_d = rel_l2(outs["NHWC", "default"].cpu(), outs["NCHW", "default"].cpu())
+    log(f"NHWC vs NCHW forward at the same weights (TF32 off): relative L2 {err:.3e} at "
+        f"\"highest\" (limit 1e-5), {err_d:.3e} at \"default\" (limit a tenth of the NCHW "
+        f"forward's own \"default\"-vs-\"highest\" gap, {gap:.3e})")
+    if not all(torch.isfinite(x).all() for x in outs.values()):
+        raise AssertionError("a forward is not finite")
+    if not (outs["NHWC", "highest"].shape == outs["NCHW", "highest"].shape and err <= 1e-5):
+        raise AssertionError(f"NHWC and NCHW forwards disagree at \"highest\": relative L2 "
+                             f"{err:.3e}")
+    if not err_d <= gap / 10:
+        raise AssertionError(f"NHWC and NCHW forwards at \"default\" are {err_d:.3e} apart, "
+                             f"their route's gap {gap:.3e}")
+    del audio, video, mask, outs
 
     batch = TRAIN_BATCHES[0]
     state = TrainState(nhwc, make_optimizer(nhwc.parameters()))
-    data = synthetic_batch(torch.Generator(device=DEVICE).manual_seed(SEED + 6), batch, g,
-                           FRAME_HW, DEVICE)
+    data = synthetic_batch(torch.Generator(device=DEVICE).manual_seed(SEED + 6), batch,
+                           nhwc.cfg.geometry, FRAME_HW, DEVICE)
     k.launch_count = k.bwd_launch_count = k.nhwc_launch_count = 0
     loss = float(train_step(state, data, 1e-4)["total_loss"])
     step = (k.launch_count, k.bwd_launch_count, k.nhwc_launch_count)
@@ -903,7 +958,7 @@ def synthetic_batch(gen, batch: int, g, frame_hw, device) -> dict:
 
 def train_card_vs_cpu(card: str, **fields) -> None:
     """Reduced flagship (8 tracks, 64x128 frames, batch 3) in the
-    configuration `fields` sets (pallas_precision="highest": K1 and K2 on
+    configuration `fields` sets (pallas_precision="highest": the kernels on
     3xTF32), same weights and batch: loss and flattened gradient,
     relative, limit 1e-4."""
     from spatialaudiogen_tpu_torch.config import SptAudioGenConfig
@@ -989,32 +1044,29 @@ def main() -> int:
         train_numbers(card)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
-    # K1 and K2: the top-level numbers are the "default" (bf16) route's,
-    # the one the main paths launch, at the flagship f32-mask case; the
-    # 3xTF32 route's are under "highest". K3 has one route (FP32 FFMA).
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    # The top-level numbers are the "default" (bf16) route's, the one the
+    # main paths launch, at the flagship f32-mask case; the 3xTF32 route's
+    # are under "highest". K3 also carries k1_ms, K1 on its mask made
+    # track-major, copy included.
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "gemm_ms")
     kernels = []
-    for name, source, replaces, times, launches in (
+    for name, source, replaces, times, launches, extra in (
             ("masked_istft", "masked_istft.cu", K1_REPLACES, k1_times,
-             {"launches": train["launches"]}),
+             {"launches": train["launches"]}, ()),
             ("masked_istft_bwd", "masked_istft_bwd.cu", K2_REPLACES, k2_times,
-             {"launches": train["bwd_launches"]})):
+             {"launches": train["bwd_launches"]}, ()),
+            ("masked_istft_nhwc", "masked_istft_nhwc.cu", K3_REPLACES, k3_times, k3,
+             ("k1_ms",))):
         main, highest = times["flagship f32", "default"], times["flagship f32", "highest"]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"spatialaudiogen_tpu_torch/ops/csrc/{source}",
             "replaces": replaces, **launches, "precision": "default",
-            **{key: main[key] for key in keys}, "gemm_ms": main["gemm_ms"],
+            **{key: main[key] for key in keys + extra},
             # no single library call computes the fused function (the
             # plain version is cuBLAS matmuls plus elementwise ops)
             "library_ms": None,
-            "highest": {key: highest[key] for key in keys + ("gemm_ms",)}})
-    flagship = k3_times["flagship f32"]
-    kernels.append({
-        "name": "masked_istft_nhwc", "route": "cuda",
-        "source": "spatialaudiogen_tpu_torch/ops/csrc/masked_istft_nhwc.cu",
-        "replaces": K3_REPLACES, **k3, "precision": "fp32 (both values)",
-        **{key: flagship[key] for key in keys}, "library_ms": None})
+            "highest": {key: highest[key] for key in keys + extra}})
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "spatialaudiogen_tpu"))
     if imported:

@@ -42,9 +42,9 @@ class SptAudioGenConfig:
     # "highest": float32 everywhere, TF32 off for matmuls and convolutions;
     # "default": TF32 allowed (the counterpart of one bf16 MXU pass).
     dft_precision: str = "highest"
-    # The masked ISTFT's GEMMs on the card: "default" bf16 operands with f32
-    # accumulation (K1, K2: one wgmma pass, the TPU's DEFAULT), "highest"
-    # 3xTF32 (f32-grade); K3 runs FP32 FFMA for both. The CPU route is f32.
+    # The masked ISTFT's GEMMs on the card (K1, K2, K3): "default" bf16
+    # operands with f32 accumulation (one wgmma pass, the TPU's DEFAULT),
+    # "highest" 3xTF32 (f32-grade). The CPU route is f32.
     pallas_precision: str = "default"
     # No use_pallas field: the masked ISTFT routes by device, CUDA tensors
     # through the fused kernels and CPU tensors through their plain

@@ -1,12 +1,12 @@
-// The tensor-core GEMM core shared by K1 (masked_istft.cu) and K2
-// (masked_istft_bwd.cu) on Hopper (sm_90a).
+// The tensor-core GEMM core shared by K1 (masked_istft.cu), K2
+// (masked_istft_bwd.cu) and K3 (masked_istft_nhwc.cu) on Hopper (sm_90a).
 //
-// Both kernels multiply an A operand that is built on the fly (the masked
-// spectra in K1, the cotangent scattered onto the comb streams in K2) by a
-// tile of the DFT bases, over 64-row tiles of (track, frame) rows and 256
-// basis columns. One block is two warpgroups; each owns one 64-row tile of
-// a pass of 128 rows and the whole 64 x 256 f32 accumulator (128 registers
-// a thread). Per precision:
+// The kernels multiply an A operand that is built on the fly (the masked
+// spectra in K1 and K3, the cotangent scattered onto the comb streams in
+// K2) by a tile of the DFT bases, over 64-row tiles of (track, frame) rows
+// and 256 basis columns. One block is two warpgroups; each owns one 64-row
+// tile of a pass of 128 rows and the whole 64 x 256 f32 accumulator (128
+// registers a thread). Per precision:
 //
 //   kBF16   ("default"): A and B rounded to bf16, wgmma.m64n256k16, f32
 //           accumulation: one pass, the TPU's DEFAULT precision.
@@ -15,14 +15,16 @@
 //           wgmma.m64n256k8 per k8 (a_hi b_hi + a_lo b_hi + a_hi b_lo) into
 //           one f32 accumulator: f32-grade products.
 //
-// A lives in registers. A thread builds its own fragment from global
-// memory (two rows, g and g + 8 of its warp's 16, four values of each per
-// k16/k8 slice), so the A operand never touches shared memory and needs no
-// barrier or proxy fence: the staging that applies the mask (K1) or the
-// comb scatter and the 1/(4F) scale (K2) happens in registers, right
-// before the conversion to bf16 or the tf32 split. Storing A to shared
-// memory instead would buy nothing here: no other warpgroup reads a
-// warpgroup's rows.
+// A lives in registers. A thread builds its own fragment (two rows, g and
+// g + 8 of its warp's 16, four values of each per k16/k8 slice) from
+// global memory, so the A operand never touches shared memory and needs no
+// proxy fence: the staging that applies the mask (K1, K3) or the comb
+// scatter and the 1/(4F) scale (K2) happens in registers, right before the
+// conversion to bf16 or the tf32 split. Storing A to shared memory instead
+// would buy nothing here: no other warpgroup reads a warpgroup's rows.
+// K3's mask is the one input a thread cannot load as float4 along F: its
+// loader stages the block's mask of a step through shared memory first
+// (a loader with a stage() member, below).
 //
 // The k order inside a step is free as long as A and B agree, so a step
 // covers 32 logical k that a thread loads as two float4 per row: slots
@@ -49,6 +51,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
+#include <utility>
 
 namespace istft_mma {
 
@@ -307,6 +312,11 @@ template <> struct Step<kTF32x3> {
 // ---------------------------------------------------------------------------
 // Block-level state: the stage ring in shared memory and its mbarriers.
 
+// Whether a loader stages part of A through shared memory (has stage(s)).
+template <class L, class = void> struct Staged : std::false_type {};
+template <class L>
+struct Staged<L, std::void_t<decltype(std::declval<L&>().stage(0))>> : std::true_type {};
+
 template <int P> struct Ring {
   uint8_t* stages;       // ring_stages<P>() x stage_bytes<P>() bytes
   uint64_t* full;        // one mbarrier per stage
@@ -337,13 +347,20 @@ template <int P> struct Ring {
 
   // One GEMM pass: acc = A (the loader's rows) * B (n_steps steps of images
   // at b_hi / b_lo). The loader has `fetch(s)` (start the global loads of
-  // step s) and `values(v)` (the A values of the fetched step). On return
-  // every thread of the block is done with the ring, so the caller may
-  // reuse its memory (the output tile aliases it) until the next gemm.
+  // step s) and `values(v)` (the A values of the fetched step). A loader
+  // that stages part of A through shared memory (K3's mask) also has
+  // `stage(s)`, which writes step s's part there: gemm calls it for steps
+  // 0 and 1 before the loop and for step s + 2 right after the barrier
+  // that ends step s, so a thread still waiting on its loads never holds
+  // up that barrier, and the next one publishes the part a step before
+  // its values() (the loader keeps three buffers). On return every thread
+  // of the block is done with the ring, so the caller may reuse its
+  // memory (the output tile aliases it) until the next gemm.
   template <class Loader>
   __device__ __forceinline__ void gemm(float (&acc)[128], const uint8_t* b_hi,
                                        const uint8_t* b_lo, int n_steps, Loader& ld) {
     constexpr int NS = ring_stages<P>();
+    constexpr bool kStaged = Staged<Loader>::value;
 #pragma unroll
     for (int i = 0; i < 128; ++i) acc[i] = 0.f;
     fence_proxy_async();
@@ -351,7 +368,12 @@ template <int P> struct Ring {
     if (threadIdx.x == 0) {
       for (int s = 0; s < NS && s < n_steps; ++s) issue(b_hi, b_lo, s, used + s);
     }
+    if constexpr (kStaged) ld.stage(0);
     ld.fetch(0);
+    if constexpr (kStaged) {
+      if (n_steps > 1) ld.stage(1);
+      __syncthreads();
+    }
     for (int s = 0; s < n_steps; ++s) {
       const uint32_t k = used + s;
       float v[2][8];
@@ -362,6 +384,9 @@ template <int P> struct Ring {
       Step<P>::run(acc, v, smem_u32(stages + (k % NS) * stage_bytes<P>()));
       __syncthreads();   // both warpgroups are done with this stage
       if (threadIdx.x == 0 && s + NS < n_steps) issue(b_hi, b_lo, s + NS, k + NS);
+      if constexpr (kStaged) {
+        if (s + 2 < n_steps) ld.stage(s + 2);
+      }
     }
     used += n_steps;
   }
@@ -407,6 +432,85 @@ struct Rows {
 __device__ __forceinline__ int frag_row(int r) {
   const int t = threadIdx.x;
   return (t / 128) * kTileRows + ((t % 128) / 32) * 16 + (t % 32) / 4 + 8 * r;
+}
+
+// ---------------------------------------------------------------------------
+// The forward (K1, K3). Frame t of comb stream k = t % 4 starts at offset
+// (3 - k)*hop, hop = F/4; writing a column n = q*hop + r (quarter q,
+// residue r),
+//
+//   out[j*hop + r] = 1/4 * sum_{q=0..3} X[j + 3 - q, q*hop + r]
+//
+// so contributions collide only when their columns differ by a multiple of
+// hop. A block owns one row of the flattened batch, the tracks of one pass
+// and a tile of kResidues residues r: it computes X for every frame of its
+// tracks at the 4 * kResidues = kN columns {q*hop + r}, one GEMM of depth
+// 2F, keeps that X tile in shared memory and writes each output sample
+// exactly once. No atomics, deterministic, one launch.
+
+constexpr int kOverlap = 4;
+constexpr int kResidues = kN / kOverlap;   // hop residues per block
+
+struct FwdBlock {
+  int r_tile;        // residue tile
+  int tr0, n_tr;     // first track of the pass, tracks in it
+  long long bn;      // row of the flattened batch
+
+  __device__ __forceinline__ FwdBlock(const Rows& rows, int n_tracks, int n_freqs) {
+    const int n_res = n_freqs / kOverlap / kResidues;
+    const int n_groups = (n_tracks + rows.per_pass - 1) / rows.per_pass;
+    int blk = blockIdx.x;
+    r_tile = blk % n_res;
+    blk /= n_res;
+    tr0 = (blk % n_groups) * rows.per_pass;
+    bn = blk / n_groups;
+    n_tr = min(rows.per_pass, n_tracks - tr0);
+  }
+};
+
+// Blocks of one forward launch (FwdBlock's order: residue tile fastest).
+inline long long fwd_blocks(int n_bn, int n_tracks, int n_frames, int n_freqs) {
+  const int per_pass = n_frames <= kTileRows ? (kTileRows / n_frames) * kWarpgroups : 1;
+  const long long n_groups = (n_tracks + per_pass - 1) / per_pass;
+  return (long long)n_bn * n_groups * (n_freqs / kOverlap / kResidues);
+}
+
+// The epilogue: the accumulators (X, unscaled) into the X tile at the start
+// of shared memory (it aliases the ring, free once gemm returns), then the
+// comb overlap-add of the block's tracks into out, (n_bn, n_tracks,
+// out_len), scaled by 1/(4F). A warp handles 32 consecutive residues:
+// conflict-free shared reads and one 128-byte store.
+__device__ __forceinline__ void fwd_epilogue(const float (&acc)[128], uint8_t* smem,
+                                             const Rows& rows, const FwdBlock& blk, int F,
+                                             float* out, int n_tracks, int out_len) {
+  float* X_s = reinterpret_cast<float*>(smem);   // [kPassRows][kOutLD]
+  // thread holds rows frag_row(0/1), columns 8 j + 2 tig + (0, 1)
+  const int tig = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float* x = X_s + frag_row(r) * kOutLD + 2 * tig;
+#pragma unroll
+    for (int j = 0; j < kN / 8; ++j)
+      store2(x + 8 * j, make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]));
+  }
+  __syncthreads();
+
+  const int hop = F / kOverlap;
+  const float scale = 1.f / (float(kOverlap) * float(F));
+  const int n_j = rows.T - (kOverlap - 1);
+  const int total = blk.n_tr * n_j * kResidues;
+  for (int idx = threadIdx.x; idx < total; idx += kThreads) {
+    const int rr = idx % kResidues;
+    const int rest = idx / kResidues;
+    const int j = rest % n_j;
+    const int tl = rest / n_j;
+    float s = 0.f;
+#pragma unroll
+    for (int q = 0; q < kOverlap; ++q)
+      s += X_s[rows.row(tl, j + kOverlap - 1 - q) * kOutLD + q * kResidues + rr];
+    out[(blk.bn * n_tracks + blk.tr0 + tl) * out_len + j * hop + blk.r_tile * kResidues + rr] =
+        s * scale;
+  }
 }
 
 }  // namespace istft_mma

@@ -10,17 +10,13 @@
 //
 // with hop = F/4, C/S the cos/sin DFT bases and p in [0, (T-3)*hop). Frame t
 // of comb stream k = t % 4 starts at offset (3 - k)*hop, which is where the
-// (t - 3)*hop above comes from. Writing n = q*hop + r (quarter q, residue r):
-//
-//   out[j*hop + r] = 1/4 * sum_{q=0..3} X[j + 3 - q, q*hop + r]
-//
-// so contributions collide only when their columns differ by a multiple of
-// hop. A block therefore owns one (b, in) row, the tracks of one 128-row
-// pass (4 tracks at T = 28: two per 64-row warpgroup tile, 8 padding rows
-// each) and a tile of RT = 64 residues r: it computes X for every frame of
-// its tracks at the 4*64 = 256 columns {q*hop + r}, one GEMM of depth 2F,
-// keeps that X tile in shared memory and writes each output sample exactly
-// once. No atomics, deterministic, one launch. Frames T <= 128.
+// (t - 3)*hop above comes from. A block (istft_mma.cuh: FwdBlock,
+// fwd_epilogue) owns one (b, in) row, the tracks of one 128-row pass (4
+// tracks at T = 28: two per 64-row warpgroup tile, 8 padding rows each) and
+// a tile of 64 hop residues r: it computes X for every frame of its tracks
+// at the 4*64 = 256 columns {q*hop + r}, one GEMM of depth 2F, keeps that X
+// tile in shared memory and writes each output sample exactly once. No
+// atomics, deterministic, one launch. Frames T <= 128.
 //
 // The GEMM (istft_mma.cuh): A = [re*m | im*m] built in registers from
 // global memory, the mask multiplying each value as it is staged, so the
@@ -49,9 +45,6 @@ namespace {
 
 using namespace istft_mma;
 
-constexpr int kOverlap = 4;
-constexpr int RT = kN / kOverlap;       // hop residues per block
-
 struct Params {
   const float* re;
   const float* im;
@@ -61,7 +54,7 @@ struct Params {
   float* out;
   int n_tracks;
   int n_frames;          // frames used (a multiple of 4, at most 128)
-  int n_freqs;           // F, a multiple of 4 * RT
+  int n_freqs;           // F, a multiple of kN
   int out_len;
   long long re_s_bn, re_s_t;           // element strides; the F axis is contiguous
   long long im_s_bn, im_s_t;
@@ -135,20 +128,9 @@ template <typename MaskT> struct Loader {
 template <int P, typename MaskT>
 __global__ void __launch_bounds__(kThreads, 1) masked_istft_fwd_kernel(const Params p) {
   extern __shared__ __align__(128) uint8_t smem[];
-  float* X_s = reinterpret_cast<float*>(smem);   // [kPassRows][kOutLD], after the GEMM
 
-  const int F = p.n_freqs;
-  const int T = p.n_frames;
-  const int hop = F / kOverlap;
-  const int n_res = hop / RT;
-  const Rows rows(T);
-  const int n_groups = (p.n_tracks + rows.per_pass - 1) / rows.per_pass;
-  int blk = blockIdx.x;
-  const int r_tile = blk % n_res;
-  blk /= n_res;
-  const int tr0 = (blk % n_groups) * rows.per_pass;
-  const long long bn = blk / n_groups;
-  const int n_tr = min(rows.per_pass, p.n_tracks - tr0);
+  const Rows rows(p.n_frames);
+  const FwdBlock blk(rows, p.n_tracks, p.n_freqs);
 
   Ring<P> ring;
   ring.init(smem);
@@ -159,46 +141,20 @@ __global__ void __launch_bounds__(kThreads, 1) masked_istft_fwd_kernel(const Par
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     int tl, t;
-    ld.ok[r] = rows.at(frag_row(r), tl, t) && tl < n_tr && t < T;
+    ld.ok[r] = rows.at(frag_row(r), tl, t) && tl < blk.n_tr && t < rows.T;
     if (!ld.ok[r]) tl = t = 0;
-    ld.m[r] = mask + bn * p.m_s_bn + (long long)(tr0 + tl) * p.m_s_tr + (long long)t * p.m_s_t;
-    ld.re[r] = p.re + bn * p.re_s_bn + (long long)t * p.re_s_t;
-    ld.im[r] = p.im + bn * p.im_s_bn + (long long)t * p.im_s_t;
+    ld.m[r] = mask + blk.bn * p.m_s_bn + (long long)(blk.tr0 + tl) * p.m_s_tr +
+              (long long)t * p.m_s_t;
+    ld.re[r] = p.re + blk.bn * p.re_s_bn + (long long)t * p.re_s_t;
+    ld.im[r] = p.im + blk.bn * p.im_s_bn + (long long)t * p.im_s_t;
   }
 
-  const int n_steps = F / 16;
+  const int n_steps = p.n_freqs / 16;
   const size_t tile_bytes = (size_t)n_steps * form_bytes<P>();
   float acc[128];
-  ring.gemm(acc, p.b_hi + r_tile * tile_bytes, p.b_lo + r_tile * tile_bytes, n_steps, ld);
-
-  // X tile: thread holds rows frag_row(0/1), columns 8 j + 2 tig + (0, 1).
-  const int tig = threadIdx.x % 4;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float* x = X_s + frag_row(r) * kOutLD + 2 * tig;
-#pragma unroll
-    for (int j = 0; j < kN / 8; ++j)
-      store2(x + 8 * j, make_float2(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]));
-  }
-  __syncthreads();
-
-  // Comb overlap-add: out[j*hop + r] = 1/(4F) * sum_q X[j+3-q][q*RT + rr].
-  // A warp handles 32 consecutive residues: conflict-free shared reads and
-  // one 128-byte store.
-  const float scale = 1.f / (float(kOverlap) * float(F));
-  const int n_j = T - (kOverlap - 1);
-  const int total = n_tr * n_j * RT;
-  for (int idx = threadIdx.x; idx < total; idx += kThreads) {
-    const int rr = idx % RT;
-    const int rest = idx / RT;
-    const int j = rest % n_j;
-    const int tl = rest / n_j;
-    float s = 0.f;
-#pragma unroll
-    for (int q = 0; q < kOverlap; ++q)
-      s += X_s[rows.row(tl, j + kOverlap - 1 - q) * kOutLD + q * RT + rr];
-    p.out[(bn * p.n_tracks + tr0 + tl) * p.out_len + j * hop + r_tile * RT + rr] = s * scale;
-  }
+  ring.gemm(acc, p.b_hi + blk.r_tile * tile_bytes, p.b_lo + blk.r_tile * tile_bytes, n_steps,
+            ld);
+  fwd_epilogue(acc, smem, rows, blk, p.n_freqs, p.out, p.n_tracks, p.out_len);
 }
 
 template <int P>
@@ -226,7 +182,7 @@ int sag_masked_istft_fwd(const float* re, const float* im, const void* mask,
                          long long im_s_t, long long m_s_bn, long long m_s_tr,
                          long long m_s_t, int device, void* stream) {
   if (n_bn < 1 || n_tracks < 1 || n_frames < kOverlap || n_frames % kOverlap != 0 ||
-      n_frames > kPassRows || n_freqs % (kOverlap * RT) != 0 ||
+      n_frames > kPassRows || n_freqs % kN != 0 ||
       (precision != kBF16 && precision != kTF32x3)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -252,9 +208,7 @@ int sag_masked_istft_fwd(const float* re, const float* im, const void* mask,
   p.m_s_tr = m_s_tr;
   p.m_s_t = m_s_t;
 
-  const int per_pass = n_frames <= kTileRows ? (kTileRows / n_frames) * kWarpgroups : 1;
-  const long long n_groups = (n_tracks + per_pass - 1) / per_pass;
-  const long long n_blocks = (long long)n_bn * n_groups * (n_freqs / kOverlap / RT);
+  const long long n_blocks = fwd_blocks(n_bn, n_tracks, n_frames, n_freqs);
   void* kernel = precision == kBF16 ? pick<kBF16>(mask_is_bf16) : pick<kTF32x3>(mask_is_bf16);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;

@@ -49,7 +49,6 @@ namespace {
 
 using namespace istft_mma;
 
-constexpr int kOverlap = 4;
 constexpr int FT = kN / 2;               // output frequencies per block
 
 struct Params {

@@ -51,8 +51,8 @@ def tf32_round(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
-# The laid-out bases of K1 and K2's tensor-core routes
-# (ops/csrc/istft_mma.cuh): a step is 32 logical k, one wgmma's B tile is
+# The laid-out bases of the kernels' tensor-core routes
+# (ops/csrc/istft_mma.cuh; K3 reads K1's): a step is 32 logical k, one wgmma's B tile is
 # 256 columns x 32 bytes of k in 16-byte core matrices of 8 columns,
 # core (nb, kc) at byte kc * 4096 + nb * 128, row i of the core at i * 16.
 MMA_COLUMNS = 256

@@ -18,18 +18,17 @@ track-major, as _nhwc_bwd does; CPU tensors run `masked_istft_nhwc_plain`.
 There is no fallback between the routes: a CUDA input a kernel cannot take
 raises.
 
-`precision` (the model's pallas_precision) picks K1's and K2's route on
-the tensor cores (csrc/istft_mma.cuh), and the backward gets the
+`precision` (the model's pallas_precision) picks K1's, K2's and K3's
+route on the tensor cores (csrc/istft_mma.cuh), and the backward gets the
 forward's: "default" rounds both GEMM operands to bf16 and accumulates in
 f32 (one wgmma pass, the TPU's DEFAULT, about 2e-3 relative L2 from f32);
 "highest" runs 3xTF32 (f32-grade). The plain versions take the same
 argument: "default" rounds the same two operands to bf16 and multiplies in
-f32, which is what the card's checks hold the bf16 route to. K3 runs FP32
-FFMA for both values. The CPU route runs the f32 plain version whatever
-`precision` says, as the JAX model's non-Pallas branch uses dft_precision.
-On an H100 (NVIDIA's peaks) the work of one flagship call at batch 16,
-60.1 GFLOP against about 80 MB, is bound by operations: 0.061 ms in bf16,
-0.364 ms in 3xTF32, 0.897 ms in K3's FP32 FFMA.
+f32, which is what the card's checks hold the bf16 route to. The CPU
+route runs the f32 plain version whatever `precision` says, as the JAX
+model's non-Pallas branch uses dft_precision. On an H100 (NVIDIA's peaks)
+the work of one flagship call at batch 16, 60.1 GFLOP against about 80 MB,
+is bound by operations: 0.061 ms in bf16, 0.364 ms in 3xTF32.
 
 The kernels are compiled with nvcc at first use into `build/` beside this
 file (`.gitignore` lists it), one nvcc per source, all started together,
@@ -61,10 +60,9 @@ HEADERS = (CSRC / "istft_mma.cuh",)   # included by the sources; in the hash
 BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_K1_FRAMES = 128    # K1: a block's tracks are one pass of 128 (track, frame) rows
-NHWC_TRACKS = 4        # K3's tracks per block, one vector load of the mask
-MAX_SMEM = 232448      # bytes of shared memory one block may use on Hopper
-PRECISIONS = {"default": 0, "highest": 1}   # K1/K2 routes: bf16, 3xTF32
+MAX_FWD_FRAMES = 128   # K1, K3: a block's tracks are one pass of 128 (track, frame) rows
+PRECISIONS = {"default": 0, "highest": 1}   # routes: bf16, 3xTF32
+NHWC_VEC_TRACKS = 4    # K3's vector route: one load brings 4 tracks of a (t, f)
 
 # Launches of K1, K2 and K3 (never of the plain versions); read and reset
 # by callers that need to show the main path went through the kernels.
@@ -167,13 +165,14 @@ def masked_istft_bwd(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
 
 
 def masked_istft_nhwc_plain(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
-                            n_overlap: int = 4) -> torch.Tensor:
+                            n_overlap: int = 4, precision: str = "highest") -> torch.Tensor:
     """Plain PyTorch version of K3: the mask viewed track-major, then
-    masked_istft_plain.
+    masked_istft_plain at `precision` ("default" rounds the same operands
+    to bf16 as K3's bf16 route does).
 
     re, im: (B, T, F); mask: (B, T, F, TR) -> (B, TR, out_len)."""
     return masked_istft_plain(re[:, None], im[:, None], mask.permute(0, 3, 1, 2)[:, None],
-                              n_overlap)[:, 0]
+                              n_overlap, precision)[:, 0]
 
 
 def masked_istft_nhwc(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
@@ -185,8 +184,9 @@ def masked_istft_nhwc(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
     channels_last output is read in place). Returns (B, TR, out_len)
     float32, what masked_istft returns on the mask made track-major;
     trailing frames beyond a multiple of n_overlap are dropped and get zero
-    gradient. K3 runs FP32 FFMA for both values of `precision`; its
-    backward, K2, takes the route `precision` picks."""
+    gradient. On the card `precision` picks the route of K3 and of its
+    backward, K2: "default" bf16, "highest" 3xTF32; on the CPU the plain
+    version runs in float32 for both."""
     _check_precision(precision)
     if _route(re, im, mask) == "cpu":
         return masked_istft_nhwc_plain(re, im, mask, n_overlap)
@@ -219,7 +219,7 @@ class _MaskedISTFTNHWC(torch.autograd.Function):
     def forward(ctx, re, im, mask, n_overlap, precision):
         ctx.save_for_backward(re, im, mask)
         ctx.n_overlap, ctx.precision = n_overlap, precision
-        return _launch_nhwc(re, im, mask, n_overlap)
+        return _launch_nhwc(re, im, mask, n_overlap, precision)
 
     @staticmethod
     def backward(ctx, g):
@@ -293,7 +293,7 @@ def _raise_on(err: int, lib, what: str):
 def _launch(re, im, mask, n_overlap, precision):
     global launch_count
     b, n_in, tracks, t, t_use, f = _check_inputs(re, im, mask, n_overlap)
-    _check(t_use <= MAX_K1_FRAMES, f"K1 takes at most {MAX_K1_FRAMES} frames, got {t_use}")
+    _check(t_use <= MAX_FWD_FRAMES, f"K1 takes at most {MAX_FWD_FRAMES} frames, got {t_use}")
     lib = _library()
     b_hi, b_lo = mma_basis(f, re.device, "fwd", precision)
     out_len = (t_use // n_overlap) * f - (n_overlap - 1) * (f // n_overlap)
@@ -344,7 +344,23 @@ def _launch_bwd(re, im, mask, g, n_overlap, precision):
     return d_re, d_im, d_mask
 
 
-def _launch_nhwc(re, im, mask, n_overlap):
+def nhwc_vector_route(mask: torch.Tensor, t_use: int) -> bool:
+    """Whether K3 takes its vector route on this (B, T, F, TR) mask: the
+    tracks of every block come in aligned groups of 4 contiguous values
+    (TR and the tracks per block multiples of 4, the other strides
+    multiples of 4 elements, the base aligned to 4 elements). Otherwise
+    it loads each mask value alone."""
+    v = NHWC_VEC_TRACKS
+    # a block's tracks (istft_mma.cuh Rows): whole tracks per 64-row
+    # warpgroup tile, two tiles; one track when T > 64
+    per_block = (64 // t_use) * 2 if t_use <= 64 else 1
+    return (per_block % v == 0 and mask.shape[3] % v == 0
+            and mask.stride(3) == 1
+            and all(st % v == 0 for st, n in zip(mask.stride()[:3], mask.shape[:3]) if n > 1)
+            and mask.data_ptr() % (v * mask.element_size()) == 0)
+
+
+def _launch_nhwc(re, im, mask, n_overlap, precision):
     global nhwc_launch_count
     _check(n_overlap == 4, f"n_overlap must be 4, got {n_overlap}")
     _check(re.dtype == im.dtype == torch.float32, f"re/im must be float32, got "
@@ -359,28 +375,23 @@ def _launch_nhwc(re, im, mask, n_overlap):
     tracks = mask.shape[3]
     t_use = (t // n_overlap) * n_overlap
     _check(t_use >= n_overlap, f"needs at least {n_overlap} frames, got {t}")
-    _check(f % (4 * 32) == 0, f"F must be a multiple of 128, got {f}")
-    _check(re.stride(-1) == 1 and im.stride(-1) == 1, "re/im's last axis must be contiguous")
+    _check(t_use <= MAX_FWD_FRAMES, f"K3 takes at most {MAX_FWD_FRAMES} frames, got {t_use}")
+    _check(f % 256 == 0, f"F must be a multiple of 256, got {f}")
+    for name, x in (("re", re), ("im", im)):
+        _check(x.stride(-1) == 1, f"{name}'s last axis must be contiguous")
+        _check(all(st % 4 == 0 for st, n in zip(x.stride()[:-1], x.shape[:-1]) if n > 1),
+               f"{name}'s strides {x.stride()} must be multiples of 4 elements")
+        _check(x.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
     lib = _library()
-    tpb = min(NHWC_TRACKS, tracks)
-    while tpb > 1 and lib.sag_masked_istft_nhwc_smem_bytes(tpb, t_use) > MAX_SMEM:
-        tpb -= 1
-    smem = lib.sag_masked_istft_nhwc_smem_bytes(tpb, t_use)
-    _check(smem <= MAX_SMEM, f"T={t_use} frames need {smem} bytes of shared "
-           f"memory per block, more than {MAX_SMEM}")
-    # one vector load brings 4 tracks: contiguous, 4-aligned tracks only
-    vec = (tpb == NHWC_TRACKS and tracks % NHWC_TRACKS == 0 and mask.stride(3) == 1
-           and all(st % NHWC_TRACKS == 0 for st, n in zip(mask.stride()[:3], mask.shape[:3])
-                   if n > 1)
-           and mask.data_ptr() % (NHWC_TRACKS * mask.element_size()) == 0)
-    c, s = basis(f, re.device)
+    b_hi, b_lo = mma_basis(f, re.device, "fwd", precision)
     out_len = (t_use // n_overlap) * f - (n_overlap - 1) * (f // n_overlap)
     out = torch.empty((b, tracks, out_len), dtype=torch.float32, device=re.device)
     stream = torch.cuda.current_stream(re.device)
     err = lib.sag_masked_istft_nhwc_fwd(
         re.data_ptr(), im.data_ptr(), mask.data_ptr(),
-        int(mask.dtype == torch.bfloat16), int(vec), c.data_ptr(), s.data_ptr(),
-        out.data_ptr(), b, tracks, t_use, f, tpb,
+        int(mask.dtype == torch.bfloat16), PRECISIONS[precision],
+        int(nhwc_vector_route(mask, t_use)), b_hi.data_ptr(), b_lo.data_ptr(),
+        out.data_ptr(), b, tracks, t_use, f,
         re.stride(0), re.stride(1), im.stride(0), im.stride(1),
         *mask.stride(), _device_index(re), stream.cuda_stream)
     _raise_on(err, lib, "masked_istft_nhwc")
@@ -473,13 +484,11 @@ def _library() -> ctypes.CDLL:
         i32, ptr]                                   # device, stream
     lib.sag_masked_istft_bwd.restype = i32
     lib.sag_masked_istft_nhwc_fwd.argtypes = [
-        ptr, ptr, ptr, i32, i32, ptr, ptr, ptr,     # re im mask bf16 vec C S out
-        i32, i32, i32, i32, i32,                    # n_b tracks T F tracks/block
+        ptr, ptr, ptr, i32, i32, i32, ptr, ptr, ptr,   # re im mask bf16 precision vec B_hi B_lo out
+        i32, i32, i32, i32,                         # n_b tracks T F
         i64, i64, i64, i64, i64, i64, i64, i64,     # strides
         i32, ptr]                                   # device, stream
     lib.sag_masked_istft_nhwc_fwd.restype = i32
-    lib.sag_masked_istft_nhwc_smem_bytes.argtypes = [i32, i32]
-    lib.sag_masked_istft_nhwc_smem_bytes.restype = i64
     lib.sag_cuda_error_string.argtypes = [i32]
     lib.sag_cuda_error_string.restype = ctypes.c_char_p
     return lib

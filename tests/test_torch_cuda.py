@@ -131,38 +131,72 @@ def _nhwc_mask(gen, b, tracks, t, wind, dtype):
     return full[:, :, 2:2 + t].permute(0, 2, 3, 1)
 
 
+NHWC_CASES = [  # b, tracks, t, wind, mask dtype, K3's vector route
+    (2, 32, 28, 1024, torch.float32, True),      # flagship: 4-track vector loads
+    (3, 5, 30, 1024, torch.float32, False),      # ragged: TR 5 (scalar loads), T % 4
+    (2, 32, 28, 1024, torch.bfloat16, True),     # bf16 4-track vector loads
+    (3, 5, 30, 1024, torch.bfloat16, False),     # bf16 scalar loads
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b, tracks, t, wind, mask_dtype, tol", [
-    (2, 32, 28, 1024, torch.float32, (2e-4, 1e-4)),     # flagship: 4-track vector loads
-    (3, 5, 30, 1024, torch.float32, (2e-4, 1e-4)),      # ragged: TR 5 (scalar loads), T % 4
-    (2, 32, 28, 1024, torch.bfloat16, (2e-4, 1e-4)),    # bf16 4-track vector loads
-    (3, 5, 30, 1024, torch.bfloat16, (2e-4, 1e-4)),     # bf16 scalar loads
-])
-def test_nhwc_kernel_matches_plain(b, tracks, t, wind, mask_dtype, tol):
-    """K3 against masked_istft_nhwc_plain on a strided NHWC view, read in
-    place; tests/test_pallas.py's f32 forward tolerance for both mask
-    dtypes, since both routes read the same bf16 values."""
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("b, tracks, t, wind, mask_dtype, vector", NHWC_CASES)
+def test_nhwc_kernel_matches_plain(b, tracks, t, wind, mask_dtype, vector, precision):
+    """K3 against masked_istft_nhwc_plain at the same precision on a
+    strided NHWC view, read in place, on both of its routes (vector and
+    scalar mask loads): "highest" (3xTF32) against the float32 function,
+    "default" (bf16 operands) against the plain version that rounds the same
+    operands; both differ only in float32 summation order
+    (tests/test_pallas.py's f32 forward tolerance, 2e-4 / 1e-4), for both
+    mask dtypes, since both read the same bf16 mask values. "default" also
+    lies 1e-4 to 1e-2 (relative L2) from the float32 function: bf16 ran."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(4)
     re = torch.randn((b, t, wind), generator=gen, device="cuda")
     im = torch.randn((b, t, wind), generator=gen, device="cuda")
     mask = _nhwc_mask(gen, b, tracks, t, wind, mask_dtype)
+    assert k1.nhwc_vector_route(mask, (t // 4) * 4) is vector
     count = k1.nhwc_launch_count
-    got = k1.masked_istft_nhwc(re, im, mask)
+    got = k1.masked_istft_nhwc(re, im, mask, 4, precision)
     torch.cuda.synchronize()
     assert k1.nhwc_launch_count == count + 1
-    want = k1.masked_istft_nhwc_plain(re, im, mask)
-    torch.testing.assert_close(got, want, atol=tol[0], rtol=tol[1])
+    want = k1.masked_istft_nhwc_plain(re, im, mask, 4, precision)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=1e-4)
+    if precision == "default":
+        err = _rel_l2(got, k1.masked_istft_nhwc_plain(re, im, mask, 4, "highest"))
+        assert 1e-4 <= err <= 1e-2, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+@pytest.mark.parametrize("b, tracks, t, wind, mask_dtype, vector", NHWC_CASES)
+def test_nhwc_kernel_matches_k1(b, tracks, t, wind, mask_dtype, vector, precision):
+    """K3 on the NHWC view against K1 on the same mask made track-major and
+    contiguous, at the same precision: K3 keeps K1's rows, k order, bases
+    and epilogue, so only the mask's path differs; max abs <= 1e-6."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    re = torch.randn((b, t, wind), generator=gen, device="cuda")
+    im = torch.randn((b, t, wind), generator=gen, device="cuda")
+    mask = _nhwc_mask(gen, b, tracks, t, wind, mask_dtype)
+    got = k1.masked_istft_nhwc(re, im, mask, 4, precision)
+    want = k1.masked_istft(re[:, None], im[:, None],
+                           mask.permute(0, 3, 1, 2)[:, None].contiguous(), 4, precision)[:, 0]
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-6
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("precision", ["highest", "default"])
 def test_nhwc_autograd_goes_through_k3_and_k2(precision):
-    """masked_istft_nhwc on CUDA tensors that need gradients: K3 forward
-    (FP32 FFMA for both precisions), K2 backward on the mask made
-    track-major at `precision`, the plain version's gradients in all three
-    inputs at that precision (K2's tolerance, 5e-4 / 1e-4); "default"
-    lies 1e-4 to 1e-2 from the float32 gradients."""
+    """masked_istft_nhwc on CUDA tensors that need gradients: K3 forward and
+    K2 backward on the mask made track-major, both at `precision`; the
+    forward against the plain version at that precision (2e-4 / 1e-4), the
+    gradients in all three inputs against the plain ones at that precision
+    (K2's tolerance, 5e-4 / 1e-4); with "default" the output and the
+    gradients lie 1e-4 to 1e-2 from the float32 ones."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(5)
     re = torch.randn((2, 30, 1024), generator=gen, device="cuda", requires_grad=True)
@@ -177,9 +211,14 @@ def test_nhwc_autograd_goes_through_k3_and_k2(precision):
     assert float(mask.grad[:, 28:].abs().max()) == 0.0
     refs = [x.detach() for x in (re, im)] + [mask.detach().permute(0, 3, 1, 2)[:, None]]
     for prec in {precision, "highest"}:
+        fwd = k1.masked_istft_nhwc_plain(refs[0], refs[1], mask.detach(), 4, prec)
         want = k1.masked_istft_bwd_plain(refs[0][:, None], refs[1][:, None], refs[2],
                                          w[:, None], 4, prec)
         want = (want[0][:, 0], want[1][:, 0], want[2][:, 0].permute(0, 2, 3, 1))
+        if prec == precision:
+            torch.testing.assert_close(out.detach(), fwd, atol=2e-4, rtol=1e-4)
+        else:
+            assert 1e-4 <= _rel_l2(out.detach(), fwd) <= 1e-2
         for x, ref in zip((re, im, mask), want):
             if prec == precision:
                 torch.testing.assert_close(x.grad, ref, atol=5e-4, rtol=1e-4)
