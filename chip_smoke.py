@@ -6,8 +6,9 @@
 Drives the flagship model (audio + RGB encoders, unet_mask head with 32
 tracks, 224x448 frames, random weights from a seed) through the port's own
 entry points, deploy and training, in its three configurations (the
-default NCHW U-Net in float32, the NHWC-mask U-Net, bf16 compute), and
-fails (non-zero exit) on the first phase that goes wrong:
+default NCHW U-Net in float32, the NHWC-mask U-Net, bf16 compute), then
+the reference's default model (audio + flow + video encoders) the same
+way, and fails (non-zero exit) on the first phase that goes wrong:
 
   1. preconditions: a CUDA card, its name and power limit, torch/CUDA/nvcc;
   2. build: the kernels (K1, the fused masked comb-ISTFT; K2, its fused
@@ -15,9 +16,11 @@ fails (non-zero exit) on the first phase that goes wrong:
      nvcc per source started together, with nvcc's register/spill report;
   3. kernels: K1, K2 and K3 at both pallas_precision routes ("default":
      bf16 wgmma; "highest": 3xTF32 wgmma) against their plain versions at
-     the same precision, at the flagship shapes and a ragged one with f32
-     and bf16 masks (K3 on the cropped channels_last mask, read in place:
-     its vector and its scalar route), the bf16 route 1e-4 to 1e-2 from
+     the same precision, at the flagship shapes, a ragged one and the
+     (F, mask frames) that cli.train's flags reach (F 64 and 128, 108 and
+     140 frames, F 2048), with f32 and bf16 masks (K3 on the cropped
+     channels_last mask, read in place: its vector and its scalar route),
+     the bf16 route 1e-4 to 1e-2 from
      float32, 3xTF32 on mixed-scale inputs ten times nearer a float64 run
      than one TF32 pass; K3 within 1e-6 of K1 on the mask made
      track-major, and K3's backward; median times (CUDA events) of each
@@ -47,16 +50,24 @@ fails (non-zero exit) on the first phase that goes wrong:
      for the NCHW and the NHWC U-Net, at pallas_precision "highest";
  10. train numbers: train-step time and samples/s at batch 32 and 128 in
      f32 and bf16, and a profile of one step at each by kernel family
-     (torch.profiler).
+     (torch.profiler);
+ 11. default model (audio, flow and video encoders): deploy through the
+     per-window host path at batch 32, card vs CPU at "highest" (<= 1e-4,
+     the last batch padded), its realtime factor and the host assembly's
+     seconds; the batch-128 forward (f32, bf16) and train step (f32,
+     bf16) timed and profiled; cli.train with the default encoders for 6
+     steps (K1 and K2 launched on every step).
 
 The kernel counts are set to 0 just before each main-path run (deploy,
-the NHWC forward and train step, the f32 and bf16 trainings) and read just
-after it. Everything else runs the model's default pallas_precision,
+the NHWC forward and train step, the f32, bf16 and default-model
+trainings, the default model's deploy) and read just after it. Everything else runs the model's default pallas_precision,
 "default" (K1, K2 and K3 on bf16). The second-to-last line is a JSON
 object describing the kernels (top-level times the bf16 route's, the
 3xTF32 route's under "highest"; K1's and K2's launches are those of the
 f32 training, K3's those of the NHWC train step, with the NHWC forward's
-count under "forward_launches"); the last is
+count under "forward_launches", the default model's training's under
+"default_model_launches"; "shapes" names every shape a kernel was held to
+its plain version at, with its bf16-route times); the last is
 {"ok": true, "device": {...}}. Without a CUDA card the
 script exits non-zero and prints no result. Scratch files go to
 .chip_smoke/ in the checkout and are removed at the end.
@@ -220,6 +231,17 @@ KERNEL_CASES = [  # name, (B, n_in, TR, T, F), mask dtype
     ("ragged f32", (3, 1, 5, 30, 1024), torch.float32),
     ("ragged bf16 mask", (3, 1, 5, 30, 1024), torch.bfloat16),
 ]
+# The (F, mask frames) that cli.train's flags reach beyond the flagship
+# (--audio_rate / --fft_window / --sample_dur; dsp/geometry.py), at batch
+# 16 with the model's 32 tracks: F below 256, more than 128 used frames
+# (overlapping chunks in K1 and K3), F = 2048.
+SHAPE_CASES = [
+    ("F128 T58", (16, 1, 32, 58, 128), torch.float32),        # --audio_rate 16000 --fft_window 0.01
+    ("F64 T58", (16, 1, 32, 58, 64), torch.float32),          # --audio_rate 8000 --fft_window 0.01
+    ("F64 T108 bf16 mask", (16, 1, 32, 108, 64), torch.bfloat16),   # 16000, 0.005
+    ("F1024 T140", (16, 1, 32, 140, 1024), torch.float32),    # --sample_dur 0.7, audio only
+    ("F2048 T19", (16, 1, 32, 19, 2048), torch.float32),      # --fft_window 0.05
+]
 
 
 def check_default_route(what: str, got, want_f32) -> float:
@@ -279,7 +301,7 @@ def kernel_phase(card: str) -> dict:
     atol, rtol = 2e-4, 1e-4
     result = {}
     with torch.no_grad():
-        for name, shape, dtype in KERNEL_CASES:
+        for name, shape, dtype in KERNEL_CASES + SHAPE_CASES:
             re, im, mask = k1_inputs(gen, *shape, dtype)
             want_f32 = k1.masked_istft_plain(re, im, mask)
             for precision in PRECISIONS:
@@ -304,8 +326,9 @@ def kernel_phase(card: str) -> dict:
                 if not ok:
                     raise AssertionError(f"K1 {name} {precision} disagrees with its plain "
                                          f"version")
-                entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "gemm_ms": g_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by}
+                entry = {"shape": list(shape), "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "gemm_ms": g_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
                 if precision == "default":
                     entry["rel_l2_f32"] = check_default_route(f"K1 {name}", got, want_f32)
                 result[name, precision] = entry
@@ -331,7 +354,7 @@ def bwd_kernel_phase(card: str) -> dict:
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     result = {}
     with torch.no_grad():
-        for name, shape, dtype in KERNEL_CASES:
+        for name, shape, dtype in KERNEL_CASES + SHAPE_CASES:
             atol, rtol = (5e-4, 1e-4) if dtype == torch.float32 else (1e-3, 1e-2)
             re, im, mask = k1_inputs(gen, *shape, dtype)
             b, n_in, tracks, t, f = shape
@@ -366,8 +389,9 @@ def bwd_kernel_phase(card: str) -> dict:
                 if not ok:
                     raise AssertionError(f"K2 {name} {precision} disagrees with its plain "
                                          f"version")
-                entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "gemm_ms": g_ms,
-                         "bound_ms": bound_ms, "bound_by": bound_by}
+                entry = {"shape": list(shape), "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "gemm_ms": g_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by}
                 if precision == "default":
                     entry["rel_l2_f32"] = max(
                         check_default_route(f"K2 {name} {part}", a, w)
@@ -412,7 +436,11 @@ def nhwc_kernel_phase(card: str) -> dict:
         ("flagship bf16 mask", flagship, torch.bfloat16, True),
         ("ragged f32", (3, 5, 30, 1024, 36, 2), torch.float32, False),
         ("ragged bf16 mask", (3, 5, 30, 1024, 36, 2), torch.bfloat16, False),
-    ]
+    ] + [  # SHAPE_CASES on a cropped channels_last mask of 6 more frames
+        (name, (b, tracks, t, f, t + 6, 3), dtype, vector)
+        for name, (b, _, tracks, t, f), dtype in SHAPE_CASES
+        # the vector route when a 64-row tile holds an even number of tracks
+        for vector in [(t // 4) * 4 <= 32]]
     atol, rtol = 2e-4, 1e-4
     result = {}
     for name, shape, dtype, vector in cases:
@@ -462,8 +490,9 @@ def nhwc_kernel_phase(card: str) -> dict:
                 if not k1_err <= 1e-6:
                     raise AssertionError(f"K3 {name} {precision} is {k1_err:.3e} from K1 on "
                                          f"the track-major mask")
-                entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "k1_ms": k1_ms,
-                         "gemm_ms": g_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+                entry = {"shape": [b, 1, tracks, t, f], "max_abs_err": err, "ms": ms,
+                         "plain_ms": plain_ms, "k1_ms": k1_ms, "gemm_ms": g_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by}
                 if precision == "default":
                     entry["rel_l2_f32"] = check_default_route(f"K3 {name}", got, want_f32)
                 result[name, precision] = entry
@@ -501,14 +530,15 @@ def nhwc_kernel_phase(card: str) -> dict:
 # 4. slice phase: the deploy engine on the card
 # ---------------------------------------------------------------------------
 
-def write_model_dir(model_dir: Path) -> None:
-    """Flagship config + random weights from a torch.Generator seed, saved
-    in the port's checkpoint format (train-params.json + params.npz)."""
+def write_model_dir(model_dir: Path, encoders=("audio", "video")) -> None:
+    """Flagship config (or another encoder set) + random weights from a
+    torch.Generator seed, saved in the port's checkpoint format
+    (train-params.json + params.npz)."""
     from spatialaudiogen_tpu_torch.config import TrainConfig
     from spatialaudiogen_tpu_torch.models.convert import save_params
     from spatialaudiogen_tpu_torch.models.sptaudiogen import SptAudioGen
 
-    cfg = TrainConfig(model_dir=str(model_dir), encoders=("audio", "video"),
+    cfg = TrainConfig(model_dir=str(model_dir), encoders=tuple(encoders),
                       separation="unet_mask", num_sep_tracks=TRACKS, frame_hw=FRAME_HW)
     cfg.save()
     model = SptAudioGen(cfg.model_config(), frame_hw=FRAME_HW)
@@ -519,8 +549,10 @@ def write_model_dir(model_dir: Path) -> None:
 def write_clip(folder: Path, seed: int = SEED, level: float = 1.0) -> np.ndarray:
     """A 4 s clip in the packed layout (data/packed.py), written with numpy
     only: PCM16 FOA audio, 10 fps uint8 RGB frames (a bright blob moving
-    over a textured background) and the audio power index. `level` scales
-    the audio (1.0: an RMS of about 0.19). Returns the int16 audio."""
+    over a textured background), flow pixels (angle and magnitude bytes, as
+    the flow jpgs hold them) with per-frame magnitude limits, and the audio
+    power index. `level` scales the audio (1.0: an RMS of about 0.19).
+    Returns the int16 audio."""
     rng = np.random.RandomState(seed)
     n = CLIP_SECONDS * RATE
     t = np.arange(n) / RATE
@@ -540,13 +572,20 @@ def write_clip(folder: Path, seed: int = SEED, level: float = 1.0) -> np.ndarray
         img = texture + blob[..., None] * np.array([255.0, 180.0, 40.0])
         frames[i] = np.clip(img, 0, 255)
 
+    flow = np.zeros((n_frames, h, wd, 3), np.uint8)
+    flow[..., 0] = rng.randint(0, 256, (n_frames, h, wd))        # angle
+    flow[..., 2] = rng.randint(0, 256, (n_frames, h, wd))        # magnitude
+    lims = np.stack([np.zeros(n_frames), rng.uniform(1.0, 3.0, n_frames)], 1)
+
     pack = folder / "packed"
     pack.mkdir(parents=True)
     np.save(pack / "ambix.npy", audio)
     np.save(pack / "video.npy", frames)
+    np.save(pack / "flow.npy", flow)
+    np.save(pack / "flow_lims.npy", lims.astype(np.float32))
     meta = {"version": 1, "rate": RATE, "num_channels": 4, "num_files": CLIP_SECONDS,
             "audio_dtype": "int16", "video_frames": n_frames,
-            "frame_shape": [h, wd, 3]}
+            "frame_shape": [h, wd, 3], "flow_frames": n_frames, "flow_shape": [h, wd, 3]}
     (pack / "meta.json").write_text(json.dumps(meta))
     with open(folder / "audio_pow.lst", "w") as f:
         for i in range((CLIP_SECONDS - 1) * 10):
@@ -695,16 +734,17 @@ FORWARD_CASES = (  # name, SptAudioGenConfig fields
 )
 
 
-def flagship_model(**fields):
+def flagship_model(model_dir: Path | None = None, **fields):
     """The flagship model with the weights chip_smoke wrote to
-    .chip_smoke/model, on the card, in the configuration `fields` sets."""
+    .chip_smoke/model (or to `model_dir`), on the card, in the
+    configuration `fields` sets."""
     import dataclasses
 
     from spatialaudiogen_tpu_torch.config import TrainConfig
     from spatialaudiogen_tpu_torch.models.convert import load_params
     from spatialaudiogen_tpu_torch.models.sptaudiogen import SptAudioGen
 
-    model_dir = SCRATCH / "model"
+    model_dir = model_dir or SCRATCH / "model"
     cfg = TrainConfig.load(str(model_dir))
     cfg.sample_dur = 0.1
     mcfg = dataclasses.replace(cfg.model_config(), **fields)
@@ -833,15 +873,16 @@ def write_train_db(db: Path) -> None:
                                  f"would be gated out by the feeder")
 
 
-def cli_train_run(db: Path, model_dir: Path, *flags: str):
+def cli_train_run(db: Path, model_dir: Path, *flags: str, encoders=("audio", "video")):
     """cli.train for TRAIN_STEPS steps at batch 32 on the card, with the
-    kernel counts set to 0 just before and read just after. Returns
-    (train state, (K1, K2, K3 launches), losses)."""
+    kernel counts set to 0 just before and read just after (encoders None:
+    the CLI's default, audio flow video). Returns (train state, (K1, K2, K3
+    launches), losses)."""
     from spatialaudiogen_tpu_torch.cli import train as cli_train
     from spatialaudiogen_tpu_torch.ops import masked_istft as k
 
     batch = TRAIN_BATCHES[0]
-    argv = [str(db), str(model_dir), "--encoders", "audio", "video",
+    argv = [str(db), str(model_dir), *(["--encoders", *encoders] if encoders else []),
             "--batch_size", str(batch), "--n_iters", str(TRAIN_STEPS),
             "--log_every", "1", "--ckpt_every", "0", "--n_workers", "4",
             "--seed", str(SEED), "--device", DEVICE, *flags]
@@ -1025,6 +1066,124 @@ def train_numbers(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 11. the default model: audio + flow + video, the CLIs' default --encoders
+# ---------------------------------------------------------------------------
+
+DEFAULT_ENCODERS = ("audio", "flow", "video")
+DEFAULT_DEPLOY_BATCH = 32
+DEFAULT_DEPLOY_SECONDS = 3.0
+
+
+def default_model_phase(card: str) -> dict:
+    """The reference's default model (audio, flow and video encoders) at the
+    flagship's width, on the packed clip with flow.npy + flow_lims.npy:
+    deploy (flow configs take the per-window host path) at batch 32 on the
+    card against the CPU at "highest" over 0.5 s (one batch: 5 windows and
+    27 zero pad lanes, kept in the forward), <= 1e-4; the card's deploy
+    realtime factor over 3 s at the model's default and the host
+    assembly's seconds beside it; the batch-128 forward in f32 and bf16
+    (CUDA events) with a profile each; the batch-128 train step in f32 and
+    bf16 with a profile each; cli.train with the default encoders for 6
+    steps at batch 32 (K1 and K2 launched on every step, K3 never, finite
+    losses). Returns the K1/K2 launches of that training."""
+    from spatialaudiogen_tpu_torch.config import TrainConfig
+    from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix
+    from spatialaudiogen_tpu_torch.ops import masked_istft as k
+    from spatialaudiogen_tpu_torch.train.state import create_train_state
+    from spatialaudiogen_tpu_torch.train.steps import train_step
+
+    model_dir, clip = SCRATCH / "default_model", SCRATCH / "clip"
+    write_model_dir(model_dir, DEFAULT_ENCODERS)
+
+    outs = {}
+    for dev, mdir in ((DEVICE, model_dir_at(model_dir, "highest")), ("cpu", model_dir)):
+        engine = MonoToAmbix(str(mdir), batch_size=DEFAULT_DEPLOY_BATCH, device=dev)
+        k.launch_count = k.bwd_launch_count = k.nhwc_launch_count = 0
+        outs[dev] = engine.deploy(str(clip), deploy_start=DEPLOY_START,
+                                  deploy_duration=CPU_SECONDS)
+        if dev == DEVICE:
+            launched = (k.launch_count, k.bwd_launch_count, k.nhwc_launch_count)
+    card_out, cpu = outs[DEVICE], outs["cpu"]
+    n = int(round(CPU_SECONDS * RATE))
+    err = rel_l2(card_out[:, 1:], cpu[:, 1:])
+    log(f"default model (audio flow video) deploy card (\"highest\") vs CPU over "
+        f"{CPU_SECONDS} s at batch {DEFAULT_DEPLOY_BATCH} (5 windows, 27 pad lanes): shape "
+        f"{card_out.shape}, relative L2 {err:.3e} (limit 1e-4), K1/K2/K3 launches "
+        f"{launched[0]}/{launched[1]}/{launched[2]}")
+    if card_out.shape != (n, 4) or cpu.shape != (n, 4) or not np.isfinite(card_out).all():
+        raise AssertionError(f"default-model deploy: shapes {card_out.shape} {cpu.shape}")
+    if not np.array_equal(card_out[:, 0], cpu[:, 0]):
+        raise AssertionError("default-model deploy: W passthrough differs between card and CPU")
+    if not err <= 1e-4:
+        raise AssertionError(f"default-model deploy: card and CPU {err:.3e} apart")
+    if launched != (1, 0, 0):
+        raise AssertionError(f"default-model deploy launched K1/K2/K3 {launched} times")
+
+    engine = MonoToAmbix(str(model_dir), batch_size=DEFAULT_DEPLOY_BATCH, device=DEVICE)
+    engine.deploy(str(clip), deploy_start=DEPLOY_START, deploy_duration=DEFAULT_DEPLOY_SECONDS)
+    t0 = time.perf_counter()
+    ambi = engine.deploy(str(clip), deploy_start=DEPLOY_START,
+                         deploy_duration=DEFAULT_DEPLOY_SECONDS)
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_batches = sum(1 for _ in engine._window_batches(
+        engine._reader(str(clip), DEPLOY_START, DEFAULT_DEPLOY_SECONDS)))
+    host = time.perf_counter() - t0
+    log(f"default model deploy (card, batch {DEFAULT_DEPLOY_BATCH}, model default, warm): "
+        f"{DEFAULT_DEPLOY_SECONDS} s in {wall:.3f} s wall -> "
+        f"{DEFAULT_DEPLOY_SECONDS / wall:.2f}x realtime; the host's window assembly alone "
+        f"({n_batches} batches) {host:.3f} s, {100 * host / wall:.0f}% of the wall [{card}]")
+    if ambi.shape != (int(round(DEFAULT_DEPLOY_SECONDS * RATE)), 4) or not np.isfinite(
+            ambi).all():
+        raise AssertionError(f"default-model deploy: shape {ambi.shape}")
+    del engine
+
+    for name, fields in (("f32", {}), ("bf16", {"dtype": torch.bfloat16})):
+        model = flagship_model(model_dir, **fields).eval()
+        g = model.cfg.geometry
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 8)
+        batch = FORWARD_BATCHES[-1]
+        audio, video = forward_inputs(gen, batch, g)
+        flow = torch.randn(video.shape, generator=gen, device=DEVICE)
+        with torch.no_grad():
+            ms = time_ms(lambda: model(audio, video, flow), warmup=2, iters=10)
+            log(f"default model device forward batch {batch} {name}: {ms:.2f} ms -> "
+                f"{batch * g.snd_dur / RATE / (ms / 1e3):.1f}x realtime [{card}]")
+            profile_step(lambda: model(audio, video, flow), card,
+                         f"default model device forward batch {batch} {name}")
+        del model, audio, video, flow
+        torch.cuda.empty_cache()
+
+    for dtype in ("float32", "bfloat16"):
+        batch = TRAIN_BATCHES[-1]
+        cfg = TrainConfig(encoders=DEFAULT_ENCODERS, frame_hw=FRAME_HW, seed=SEED,
+                          compute_dtype=dtype)
+        g = cfg.model_config().geometry
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED + 9)
+        state = create_train_state(cfg, DEVICE)
+        data = synthetic_batch(gen, batch, g, FRAME_HW, DEVICE)
+        data["flow"] = torch.randn(data["video"].shape, generator=gen, device=DEVICE)
+
+        def step():
+            train_step(state, data, 1e-4, cfg.weight_decay)
+
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(step, warmup=2, iters=5)
+        log(f"default model train step batch {batch} {dtype}: {ms:.2f} ms -> "
+            f"{batch / (ms / 1e3):.1f} samples/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB [{card}]")
+        profile_step(step, card, f"default model train step batch {batch} {dtype}")
+        del state, data
+        torch.cuda.empty_cache()
+
+    _, launches, _ = cli_train_run(SCRATCH / "train_db", SCRATCH / "trained_default",
+                                   encoders=None)
+    if TrainConfig.load(str(SCRATCH / "trained_default")).encoders != DEFAULT_ENCODERS:
+        raise AssertionError("cli.train's default encoders are not audio flow video")
+    return {"launches": launches[0], "bwd_launches": launches[1]}
+
+
 def main() -> int:
     card = preconditions()
     shutil.rmtree(SCRATCH, ignore_errors=True)
@@ -1039,6 +1198,7 @@ def main() -> int:
         k3 = nhwc_path_phase(card)
         train = train_phase(card)
         bf16_train_phase(card)
+        default = default_model_phase(card)
         train_card_vs_cpu(card, pallas_precision="highest")
         train_card_vs_cpu(card, pallas_nhwc=True, pallas_precision="highest")
         train_numbers(card)
@@ -1052,9 +1212,11 @@ def main() -> int:
     kernels = []
     for name, source, replaces, times, launches, extra in (
             ("masked_istft", "masked_istft.cu", K1_REPLACES, k1_times,
-             {"launches": train["launches"]}, ()),
+             {"launches": train["launches"],
+              "default_model_launches": default["launches"]}, ()),
             ("masked_istft_bwd", "masked_istft_bwd.cu", K2_REPLACES, k2_times,
-             {"launches": train["bwd_launches"]}, ()),
+             {"launches": train["bwd_launches"],
+              "default_model_launches": default["bwd_launches"]}, ()),
             ("masked_istft_nhwc", "masked_istft_nhwc.cu", K3_REPLACES, k3_times, k3,
              ("k1_ms",))):
         main, highest = times["flagship f32", "default"], times["flagship f32", "highest"]
@@ -1066,7 +1228,12 @@ def main() -> int:
             # no single library call computes the fused function (the
             # plain version is cuBLAS matmuls plus elementwise ops)
             "library_ms": None,
-            "highest": {key: highest[key] for key in keys + extra}})
+            "highest": {key: highest[key] for key in keys + extra},
+            # every shape the kernel was held to its plain version at, with
+            # its times on the bf16 route ("default")
+            "shapes": {case: {key: entry[key] for key in ("shape",) + keys + extra}
+                       for (case, precision), entry in times.items()
+                       if precision == "default"}})
     imported = sorted(m for m in sys.modules
                       if m.split(".")[0] in ("jax", "spatialaudiogen_tpu"))
     if imported:

@@ -2,11 +2,12 @@
 (reference train.py:16-59), plus --device.
 
     python -m spatialaudiogen_tpu_torch.cli.train DB_DIR MODEL_DIR \
-        --encoders audio video --separation unet_mask --batch_size 32 ...
+        [--encoders audio flow video] --separation unet_mask --batch_size 32 ...
 
-Flags that select paths not ported yet raise NotImplementedError naming
-their ROADMAP.md item: `flow` among --encoders (so the default encoder list
-raises: pass --encoders audio video), --n_data/--n_model > 1,
+The default encoders (audio, flow and video) train; flow needs the dataset's
+flow frames (flow/ jpgs or the packed flow.npy + flow_lims.npy). Flags that
+select paths not ported yet raise NotImplementedError naming their
+ROADMAP.md item: --n_data/--n_model > 1,
 --coordinator/--n_processes/--process_id, --tb_histograms and
 --pretrained_resnet.
 """
@@ -85,9 +86,6 @@ def parse_arguments(argv=None):
 def refuse_unported(args) -> None:
     """NotImplementedError for the flags whose paths are not ported yet."""
     later = "is not ported yet; see ROADMAP.md, 'Modules to port', item"
-    if "flow" in args.encoders:
-        raise NotImplementedError(f"the flow encoder {later} 15 (pass "
-                                  f"--encoders audio video)")
     if args.n_model > 1 or (args.n_data or 1) > 1:
         raise NotImplementedError(f"--n_data/--n_model > 1 (multi-device) {later} 14")
     if any(v is not None for v in (args.coordinator, args.n_processes, args.process_id)):

@@ -11,9 +11,13 @@ Layout (per video, next to the source dirs):
                        PCM16-exact (lossless: decode is int16/32768), else
                        float32
       video.npy        (N_frames, H, W, 3) uint8 decoded rgb frames
+      flow.npy         (N_frames, H, W, 3) uint8 + flow_lims.npy (N, 2):
+                       the compressed flow jpgs' decoded pixels and their
+                       per-frame magnitude limits (meta "flow_frames",
+                       "flow_shape")
 
-The packed readers reproduce readers.AudioChunkReader / VideoFrameReader
-semantics exactly (same window rounding, zero padding, rotation/roll
+The packed readers reproduce readers.AudioChunkReader / VideoFrameReader /
+FlowFrameReader semantics exactly (same window rounding, zero padding, rotation/roll
 augmentation, frame-index clamping). SampleReader auto-detects a pack.
 """
 
@@ -122,3 +126,22 @@ class PackedVideoReader:
         if roll:
             chunk = np.roll(chunk, roll, axis=2)
         return self.img_prep(chunk)
+
+
+class PackedFlowReader:
+    """FlowFrameReader semantics over packed flow pixels + limits."""
+
+    def __init__(self, folder: str, rate: float | None = None, flow_prep=None):
+        # flow_prep: signature parity only; never applied (readers.py note)
+        self.reader = PackedVideoReader(folder, rate=rate, key="flow")
+        self.lims = np.load(os.path.join(pack_dir(folder), "flow_lims.npy"))
+        self.rate = self.reader.rate
+        self.duration = self.reader.duration
+        self.frame_shape = self.reader.frame_shape
+
+    def get_by_index(self, start_time: float, size: int,
+                     rotation: float | None = None) -> np.ndarray:
+        from spatialaudiogen_tpu_torch.data.readers import decode_flow
+
+        chunk = self.reader.get_by_index(start_time, size, rotation).astype(np.float32)
+        return decode_flow(chunk, self.lims, self.reader.frame_indices(start_time, size))

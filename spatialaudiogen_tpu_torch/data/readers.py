@@ -271,6 +271,52 @@ class VideoFrameReader:
         return chunk
 
 
+class FlowFrameReader:
+    """Decompresses angle/magnitude jpg flow into (dx, dy, mag) float maps.
+
+    Channel semantics per reference feeder.py:147-161: jpg channel 0 holds
+    the quantized flow angle, channel 2 the magnitude normalized per-frame by
+    flow_limits.npy (T, 2) min/max rows.
+    """
+
+    def __init__(self, flow_dir: str, flow_lims_fn: str, rate: float | None = None,
+                 flow_prep=None):
+        # `flow_prep` is accepted for reference signature parity but, like
+        # the reference (feeder.py:141-143 only probes a dummy frame with
+        # it; get_by_index never applies it), it is NOT applied to chunks.
+        self.reader = VideoFrameReader(flow_dir, rate=rate)
+        self.lims = np.load(flow_lims_fn)
+        self.rate = self.reader.rate
+        self.duration = self.reader.duration
+        self.frame_shape = self.reader.frame_shape
+
+    def get_by_index(self, start_time: float, size: int,
+                     rotation: float | None = None) -> np.ndarray:
+        # a rotation rolls the flow pixels along W as it rolls video frames
+        # and leaves the vectors' angle as it is (the reference's behaviour)
+        chunk = self.reader.get_by_index(start_time, size, rotation).astype(np.float32)
+        return decode_flow(chunk, self.lims, self.reader.frame_indices(start_time, size))
+
+
+def decode_flow(chunk: np.ndarray, lims: np.ndarray, frame_nos) -> np.ndarray:
+    """(T, H, W, 3) float32 flow pixels -> (dx, dy, mag) float32 maps.
+
+    The per-frame limits follow the same (clamped, raw-rate) frame indices
+    as the frames, clamped into lims: the reference sliced lims[ss:ss+t]
+    unclamped and crashed on windows overrunning the frame count (plain bug,
+    fixed; identical for in-range windows)."""
+    idx = np.minimum(frame_nos, len(lims) - 1)
+    m_min = lims[idx, 0].reshape((-1, 1, 1))
+    m_max = lims[idx, 1].reshape((-1, 1, 1))
+    mag = chunk[:, :, :, 2] * (m_max - m_min) / 255.0 + m_min
+    ang = chunk[:, :, :, 0] * (2 * np.pi) / 255.0
+    out = np.empty_like(chunk)
+    out[:, :, :, 0] = mag * np.cos(ang)
+    out[:, :, :, 1] = mag * np.sin(ang)
+    out[:, :, :, 2] = mag
+    return out
+
+
 def img_prep_default(x: np.ndarray) -> np.ndarray:
     """Training image preprocessing (myutils.py:88-89): x/255 - 0.5."""
     return x.astype(np.float32) / 255.0 - 0.5
@@ -309,12 +355,8 @@ class SampleReader:
                  rng: np.random.RandomState | None = None,
                  audio_reader: AudioChunkReader | None = None,
                  video_reader: VideoFrameReader | None = None,
-                 flow_reader=None,
+                 flow_reader: FlowFrameReader | None = None,
                  use_packed: bool | None = None):
-        if return_flow or flow_reader is not None:
-            raise NotImplementedError(
-                "flow readers are not ported yet (flow configs raise); see "
-                "ROADMAP.md, 'Modules to port', the rest of the surface")
         a2v = float(audio_rate) / video_rate
         snd_dur = duration * audio_rate
         vid_dur = duration * video_rate
@@ -344,7 +386,7 @@ class SampleReader:
             assert _packed.is_packed(folder), f"no pack in {folder}"
         self.audio_reader = audio_reader
         self.video_reader = video_reader
-        self.flow_reader = None
+        self.flow_reader = flow_reader
         if self.audio_reader is None:
             self.audio_reader = (
                 _packed.PackedAudioReader(folder, audio_rate, ambi_order)
@@ -357,6 +399,14 @@ class SampleReader:
                 if use_packed else
                 VideoFrameReader(os.path.join(folder, "video"), video_rate,
                                  img_prep))
+        if return_flow and self.flow_reader is None:
+            flow_dir = os.path.join(folder, "flow")
+            self.flow_reader = (
+                _packed.PackedFlowReader(folder, video_rate, flow_prep)
+                if use_packed else
+                FlowFrameReader(flow_dir,
+                                os.path.join(flow_dir, "flow_limits.npy"),
+                                video_rate, flow_prep))
         self.duration = duration
         self.context = context
         self.audio_rate = audio_rate
@@ -408,6 +458,9 @@ class SampleReader:
             # everything else is coerced f32 as the reference feeder does
             chunk["video"] = (video if video.dtype == np.uint8
                               else video.astype(np.float32))
+        if self.flow_reader is not None:
+            chunk["flow"] = self.flow_reader.get_by_index(
+                cur_t, self.video_size, rotation).astype(np.float32)
         return chunk
 
     def loop_chunks(self, n: float = np.inf):

@@ -16,6 +16,15 @@ through untouched. As in the JAX engine:
   * predictions may come back as float16 (`f16_fetch`);
   * an optional Hann crossfade blends a second pass offset by half a window.
 
+Flow configs (the reference's default audio+flow+video model) take the JAX
+engine's other route, per-window host assembly (`_predict_span_host`): the
+SampleReader's float32 windows (audio, video frames after the
+x/255 - 0.5 prep, decoded flow maps) are stacked per batch on the host, a
+partial last batch is padded with zero windows that stay in the forward
+(the pad lanes reach the real ones through the visual encoders' batch
+statistics, as in the JAX engine), and predictions come back as float32,
+one batch behind the dispatch.
+
 Host buffers are pinned and the copies are non-blocking: decode runs in a
 background thread and the copy back of a batch's predictions is read two
 batches after it was issued, so the host and the card overlap.
@@ -109,11 +118,6 @@ class MonoToAmbix:
         self.cfg = TrainConfig.load(model_dir, compute_dtype=compute_dtype)
         self.cfg.model_dir = model_dir
         self.cfg.sample_dur = DEPLOY_DURATION
-        if FLOW in self.cfg.encoders:
-            raise NotImplementedError(
-                "flow-encoder configs are not ported yet (the JAX engine "
-                "deploys them through per-window host assembly); see "
-                "ROADMAP.md, 'Modules to port', the rest of the surface")
         self.batch_size = batch_size
         mcfg = self.cfg.model_config()
         self.geometry = mcfg.geometry
@@ -160,7 +164,7 @@ class MonoToAmbix:
             duration=DEPLOY_DURATION,
             return_video=VIDEO in self.cfg.encoders,
             img_prep=img_prep_default,
-            return_flow=False,
+            return_flow=FLOW in self.cfg.encoders,
             skip_silence_thr=None,
             shuffle=False,
             random_rotations=False,
@@ -245,7 +249,93 @@ class MonoToAmbix:
         return t
 
     def _predict_span(self, input_folder: str, start: float, duration: float | None):
-        """One sliding pass -> (mono (N, n_in), pred (N, n_out))."""
+        """One sliding pass -> (mono (N, n_in), pred (N, n_out)): flow
+        configs through per-window host assembly, the others through the
+        on-device gather, as the JAX engine's _predict_span routes them."""
+        if FLOW not in self.cfg.encoders:
+            return self._predict_span_ondevice(input_folder, start, duration)
+        return self._predict_span_host(input_folder, start, duration)
+
+    def _window_batches(self, reader):
+        """Host-side batch assembly of whole windows (flow configs; runs in
+        a background thread so window reads overlap the card): per batch
+        (n real windows, audio (B, snd_size, n_in), video, flow
+        (B, T, H, W, 3) float32 or None, mono passthrough). A partial last
+        batch is padded with zero windows, as the JAX engine pads it."""
+        g = self.geometry
+        n_in = g.num_in_channels
+        batch = {"ambix": [], "video": [], "flow": []}
+
+        def assemble():
+            n = len(batch["ambix"])
+            pad = self.batch_size - n
+
+            def padded(stack):
+                if not stack:
+                    return None
+                arr = np.stack(stack, 0).astype(np.float32)
+                if pad:
+                    arr = np.concatenate(
+                        [arr, np.zeros((pad,) + arr.shape[1:], np.float32)], 0)
+                return arr
+
+            ambix, video, flow = (padded(batch[k]) for k in ("ambix", "video", "flow"))
+            mono = ambix[:n, g.nosep_ss: g.nosep_ss + g.snd_dur, :n_in] \
+                .reshape(n * g.snd_dur, n_in).copy()
+            for stack in batch.values():
+                stack.clear()
+            return n, np.ascontiguousarray(ambix[:, :, :n_in]), video, flow, mono
+
+        for chunk in reader.loop_chunks():
+            for key in batch:
+                if key in chunk:
+                    batch[key].append(chunk[key])
+            if len(batch["ambix"]) == self.batch_size:
+                yield assemble()
+        if batch["ambix"]:
+            yield assemble()
+
+    def _predict_span_host(self, input_folder: str, start: float, duration: float | None):
+        """One sliding pass through per-window host assembly (the JAX
+        engine's _predict_span_host) -> (mono (N, n_in), pred (N, n_out))."""
+        g = self.geometry
+        reader = self._reader(input_folder, start, duration)
+        dtype = next(self.model.parameters()).dtype   # float32 unless .double()d
+        monos, preds = [], []
+        pending = deque()   # (n, host tensor, copy-done event): one batch behind
+
+        def drain(n, host, done):
+            if done is not None:
+                done.synchronize()
+            preds.append(host[:n].numpy().reshape(n * g.snd_dur, -1))
+
+        with torch.no_grad():
+            for n, audio, video, flow, mono in BackgroundGenerator(
+                    self._window_batches(reader), depth=2):
+                monos.append(mono)
+                audio, video, flow = (None if x is None else self._upload(x).to(dtype)
+                                      for x in (audio, video, flow))
+                out = self.model(audio, video, flow).float()
+                done = None
+                if self.device.type == "cuda":
+                    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                    host.copy_(out, non_blocking=True)
+                    done = torch.cuda.Event()
+                    done.record()
+                    out = host
+                pending.append((n, out, done))
+                if len(pending) > 1:
+                    drain(*pending.popleft())
+        while pending:
+            drain(*pending.popleft())
+        if not preds:
+            raise ValueError(f"no windows to deploy in {input_folder}")
+        return np.concatenate(monos, 0), np.concatenate(preds, 0)
+
+    def _predict_span_ondevice(self, input_folder: str, start: float,
+                               duration: float | None):
+        """One sliding pass through the on-device window gather (configs
+        without flow) -> (mono (N, n_in), pred (N, n_out))."""
         g = self.geometry
         reader = self._reader(input_folder, start, duration)
         n_windows = len(reader.chunks_t)

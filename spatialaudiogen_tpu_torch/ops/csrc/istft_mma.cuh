@@ -396,7 +396,8 @@ template <int P> struct Ring {
 // Rows. A pass holds whole tracks: with T <= 64 frames, each 64-row tile
 // holds floor(64 / T) tracks (its last rows are padding); with
 // 64 < T <= 128, one track fills the pass; longer tracks are split into
-// chunks of 128 frames (K2 only).
+// chunks of at most 128 frames, one track per pass (fwd_chunks for K1 and
+// K3, plain 128-frame chunks for K2).
 
 struct Rows {
   int T;             // frames
@@ -442,37 +443,91 @@ __device__ __forceinline__ int frag_row(int r) {
 //   out[j*hop + r] = 1/4 * sum_{q=0..3} X[j + 3 - q, q*hop + r]
 //
 // so contributions collide only when their columns differ by a multiple of
-// hop. A block owns one row of the flattened batch, the tracks of one pass
-// and a tile of kResidues residues r: it computes X for every frame of its
-// tracks at the 4 * kResidues = kN columns {q*hop + r}, one GEMM of depth
-// 2F, keeps that X tile in shared memory and writes each output sample
-// exactly once. No atomics, deterministic, one launch.
+// hop. A block owns one row of the flattened batch, the tracks of one pass,
+// a chunk of frames and a tile of up to kResidues residues r: it computes X
+// for every frame of its chunk at the 4 * kResidues = kN columns
+// {q*hop + r}, one GEMM of depth 2F, keeps that X tile in shared memory and
+// writes each output sample exactly once. No atomics, deterministic, one
+// launch.
+//
+// Small F: with hop < kResidues (F < 256) the tile has hop residues and the
+// basis image's other columns are zero (ops/dft.py:mma_basis); F needs only
+// be a multiple of 32, so a last tile may be partial too.
+//
+// Long tracks (T > 128): output j needs frames j .. j + 3, so the chunks
+// overlap by 3 frames. Chunk c covers outputs [c*outs, (c+1)*outs) and frames
+// [c*outs, (c+1)*outs + 3), at most 128: each chunk recomputes the 3 frames
+// it shares with the next (2.4% more rows at 128-frame chunks) instead of
+// carrying the seam's partial sums, so chunks are independent blocks and
+// every sum keeps the order of the one-pass case. For T <= 128 there is one
+// chunk, the whole track.
+//
+// Both cases are a template branch (kGeneral, fwd_general): the flagship's
+// shapes (F a multiple of 256, T <= 128) compile to the code without them,
+// as the guards cost its batch-128 launch 4% when they were always there.
 
 constexpr int kOverlap = 4;
-constexpr int kResidues = kN / kOverlap;   // hop residues per block
+constexpr int kResidues = kN / kOverlap;   // hop residues per block, at most
+constexpr int kChunkOuts = kPassRows - (kOverlap - 1);   // outputs per chunk, at most
 
-struct FwdBlock {
+// Chunks of a track of n_frames used frames: n of them, `outs` outputs each
+// (the last may have fewer).
+__host__ __device__ inline void fwd_chunks(int n_frames, int& n, int& outs) {
+  const int n_out = n_frames - (kOverlap - 1);
+  n = (n_out + kChunkOuts - 1) / kChunkOuts;
+  outs = (n_out + n - 1) / n;
+}
+
+__host__ __device__ inline int fwd_res_tiles(int n_freqs) {
+  return (n_freqs / kOverlap + kResidues - 1) / kResidues;
+}
+
+// Whether a forward launch needs the general block: small F, a partial
+// residue tile or chunked tracks.
+inline bool fwd_general(int n_frames, int n_freqs) {
+  return n_frames > kPassRows || n_freqs % kN != 0;
+}
+
+template <bool kGeneral> struct FwdBlock {
   int r_tile;        // residue tile
+  int n_res;         // residues in it
   int tr0, n_tr;     // first track of the pass, tracks in it
+  int t0, nt;        // first frame of the chunk, frames in it
   long long bn;      // row of the flattened batch
 
   __device__ __forceinline__ FwdBlock(const Rows& rows, int n_tracks, int n_freqs) {
-    const int n_res = n_freqs / kOverlap / kResidues;
+    const int n_rt = fwd_res_tiles(n_freqs);
     const int n_groups = (n_tracks + rows.per_pass - 1) / rows.per_pass;
     int blk = blockIdx.x;
-    r_tile = blk % n_res;
-    blk /= n_res;
+    r_tile = blk % n_rt;
+    blk /= n_rt;
+    if constexpr (kGeneral) {
+      int n_chunks, outs;
+      fwd_chunks(rows.T, n_chunks, outs);
+      const int chunk = blk % n_chunks;
+      blk /= n_chunks;
+      n_res = min(kResidues, n_freqs / kOverlap - r_tile * kResidues);
+      t0 = chunk * outs;
+      nt = min(outs, rows.T - (kOverlap - 1) - t0) + (kOverlap - 1);
+    } else {
+      n_res = kResidues;
+      t0 = 0;
+      nt = rows.T;
+    }
     tr0 = (blk % n_groups) * rows.per_pass;
     bn = blk / n_groups;
     n_tr = min(rows.per_pass, n_tracks - tr0);
   }
 };
 
-// Blocks of one forward launch (FwdBlock's order: residue tile fastest).
+// Blocks of one forward launch (FwdBlock's order: residue tile fastest,
+// then chunk).
 inline long long fwd_blocks(int n_bn, int n_tracks, int n_frames, int n_freqs) {
   const int per_pass = n_frames <= kTileRows ? (kTileRows / n_frames) * kWarpgroups : 1;
   const long long n_groups = (n_tracks + per_pass - 1) / per_pass;
-  return (long long)n_bn * n_groups * (n_freqs / kOverlap / kResidues);
+  int n_chunks, outs;
+  fwd_chunks(n_frames, n_chunks, outs);
+  return (long long)n_bn * n_groups * n_chunks * fwd_res_tiles(n_freqs);
 }
 
 // The epilogue: the accumulators (X, unscaled) into the X tile at the start
@@ -480,9 +535,10 @@ inline long long fwd_blocks(int n_bn, int n_tracks, int n_frames, int n_freqs) {
 // comb overlap-add of the block's tracks into out, (n_bn, n_tracks,
 // out_len), scaled by 1/(4F). A warp handles 32 consecutive residues:
 // conflict-free shared reads and one 128-byte store.
+template <bool kGeneral>
 __device__ __forceinline__ void fwd_epilogue(const float (&acc)[128], uint8_t* smem,
-                                             const Rows& rows, const FwdBlock& blk, int F,
-                                             float* out, int n_tracks, int out_len) {
+                                             const Rows& rows, const FwdBlock<kGeneral>& blk,
+                                             int F, float* out, int n_tracks, int out_len) {
   float* X_s = reinterpret_cast<float*>(smem);   // [kPassRows][kOutLD]
   // thread holds rows frag_row(0/1), columns 8 j + 2 tig + (0, 1)
   const int tig = threadIdx.x % 4;
@@ -497,10 +553,13 @@ __device__ __forceinline__ void fwd_epilogue(const float (&acc)[128], uint8_t* s
 
   const int hop = F / kOverlap;
   const float scale = 1.f / (float(kOverlap) * float(F));
-  const int n_j = rows.T - (kOverlap - 1);
+  const int n_j = blk.nt - (kOverlap - 1);
   const int total = blk.n_tr * n_j * kResidues;
   for (int idx = threadIdx.x; idx < total; idx += kThreads) {
     const int rr = idx % kResidues;
+    if constexpr (kGeneral) {
+      if (rr >= blk.n_res) continue;   // the zero columns of a small or last tile
+    }
     const int rest = idx / kResidues;
     const int j = rest % n_j;
     const int tl = rest / n_j;
@@ -508,8 +567,8 @@ __device__ __forceinline__ void fwd_epilogue(const float (&acc)[128], uint8_t* s
 #pragma unroll
     for (int q = 0; q < kOverlap; ++q)
       s += X_s[rows.row(tl, j + kOverlap - 1 - q) * kOutLD + q * kResidues + rr];
-    out[(blk.bn * n_tracks + blk.tr0 + tl) * out_len + j * hop + blk.r_tile * kResidues + rr] =
-        s * scale;
+    out[(blk.bn * n_tracks + blk.tr0 + tl) * out_len + (blk.t0 + j) * hop +
+        blk.r_tile * kResidues + rr] = s * scale;
   }
 }
 

@@ -12,11 +12,14 @@
 // of comb stream k = t % 4 starts at offset (3 - k)*hop, which is where the
 // (t - 3)*hop above comes from. A block (istft_mma.cuh: FwdBlock,
 // fwd_epilogue) owns one (b, in) row, the tracks of one 128-row pass (4
-// tracks at T = 28: two per 64-row warpgroup tile, 8 padding rows each) and
-// a tile of 64 hop residues r: it computes X for every frame of its tracks
-// at the 4*64 = 256 columns {q*hop + r}, one GEMM of depth 2F, keeps that X
-// tile in shared memory and writes each output sample exactly once. No
-// atomics, deterministic, one launch. Frames T <= 128.
+// tracks at T = 28: two per 64-row warpgroup tile, 8 padding rows each; one
+// track at 64 < T <= 128), a chunk of frames (the whole track up to
+// T = 128; longer tracks in chunks of at most 128 frames that overlap by 3)
+// and a tile of 64 hop residues r (hop of them when F < 256): it computes X
+// for every frame of its chunk at the 4*64 = 256 columns {q*hop + r}, one
+// GEMM of depth 2F, keeps that X tile in shared memory and writes each
+// output sample exactly once. No atomics, deterministic, one launch. Any T,
+// any F that is a multiple of 32.
 //
 // The GEMM (istft_mma.cuh): A = [re*m | im*m] built in registers from
 // global memory, the mask multiplying each value as it is staged, so the
@@ -53,8 +56,8 @@ struct Params {
   const uint8_t* b_lo;   // the tf32 lo part (3xTF32 only)
   float* out;
   int n_tracks;
-  int n_frames;          // frames used (a multiple of 4, at most 128)
-  int n_freqs;           // F, a multiple of kN
+  int n_frames;          // frames used (a multiple of 4)
+  int n_freqs;           // F, a multiple of 32
   int out_len;
   long long re_s_bn, re_s_t;           // element strides; the F axis is contiguous
   long long im_s_bn, im_s_t;
@@ -125,12 +128,12 @@ template <typename MaskT> struct Loader {
   }
 };
 
-template <int P, typename MaskT>
+template <int P, typename MaskT, bool kGeneral>
 __global__ void __launch_bounds__(kThreads, 1) masked_istft_fwd_kernel(const Params p) {
   extern __shared__ __align__(128) uint8_t smem[];
 
   const Rows rows(p.n_frames);
-  const FwdBlock blk(rows, p.n_tracks, p.n_freqs);
+  const FwdBlock<kGeneral> blk(rows, p.n_tracks, p.n_freqs);
 
   Ring<P> ring;
   ring.init(smem);
@@ -141,8 +144,9 @@ __global__ void __launch_bounds__(kThreads, 1) masked_istft_fwd_kernel(const Par
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     int tl, t;
-    ld.ok[r] = rows.at(frag_row(r), tl, t) && tl < blk.n_tr && t < rows.T;
+    ld.ok[r] = rows.at(frag_row(r), tl, t) && tl < blk.n_tr && t < blk.nt;
     if (!ld.ok[r]) tl = t = 0;
+    t += blk.t0;
     ld.m[r] = mask + blk.bn * p.m_s_bn + (long long)(blk.tr0 + tl) * p.m_s_tr +
               (long long)t * p.m_s_t;
     ld.re[r] = p.re + blk.bn * p.re_s_bn + (long long)t * p.re_s_t;
@@ -157,10 +161,15 @@ __global__ void __launch_bounds__(kThreads, 1) masked_istft_fwd_kernel(const Par
   fwd_epilogue(acc, smem, rows, blk, p.n_freqs, p.out, p.n_tracks, p.out_len);
 }
 
+template <int P, bool kGeneral>
+void* pick_mask(int mask_is_bf16) {
+  return mask_is_bf16 ? (void*)masked_istft_fwd_kernel<P, __nv_bfloat16, kGeneral>
+                      : (void*)masked_istft_fwd_kernel<P, float, kGeneral>;
+}
+
 template <int P>
-void* pick(int mask_is_bf16) {
-  return mask_is_bf16 ? (void*)masked_istft_fwd_kernel<P, __nv_bfloat16>
-                      : (void*)masked_istft_fwd_kernel<P, float>;
+void* pick(int mask_is_bf16, bool general) {
+  return general ? pick_mask<P, true>(mask_is_bf16) : pick_mask<P, false>(mask_is_bf16);
 }
 
 }  // namespace
@@ -182,7 +191,7 @@ int sag_masked_istft_fwd(const float* re, const float* im, const void* mask,
                          long long im_s_t, long long m_s_bn, long long m_s_tr,
                          long long m_s_t, int device, void* stream) {
   if (n_bn < 1 || n_tracks < 1 || n_frames < kOverlap || n_frames % kOverlap != 0 ||
-      n_frames > kPassRows || n_freqs % kN != 0 ||
+      n_freqs < 32 || n_freqs % 32 != 0 ||
       (precision != kBF16 && precision != kTF32x3)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -209,7 +218,9 @@ int sag_masked_istft_fwd(const float* re, const float* im, const void* mask,
   p.m_s_t = m_s_t;
 
   const long long n_blocks = fwd_blocks(n_bn, n_tracks, n_frames, n_freqs);
-  void* kernel = precision == kBF16 ? pick<kBF16>(mask_is_bf16) : pick<kTF32x3>(mask_is_bf16);
+  const bool general = fwd_general(n_frames, n_freqs);
+  void* kernel = precision == kBF16 ? pick<kBF16>(mask_is_bf16, general)
+                                    : pick<kTF32x3>(mask_is_bf16, general);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&p};

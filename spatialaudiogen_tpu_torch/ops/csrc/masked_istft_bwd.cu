@@ -16,7 +16,9 @@
 //   d_im[t, f]      = sum_r g_im * m[r, t, f]
 //
 // Design. A block owns one (b, in) row and a tile of FT = 128 output
-// frequencies f, and walks ALL tracks in passes of 128 (track, frame) rows
+// frequencies f (F < 128, or the last tile of an F that is not a multiple
+// of 128: fewer, and the basis image's other columns are zero), and walks
+// ALL tracks in passes of 128 (track, frame) rows
 // (4 tracks at T = 28; tracks longer than 128 frames in chunks of 128), so
 // the track sums of d_re/d_im never leave the block: no atomics,
 // deterministic. The two GEMMs share their A operand (gx), so a pass is one
@@ -64,7 +66,7 @@ struct Params {
   int n_tracks;
   int n_frames;            // frames used (a multiple of 4)
   int n_frames_total;      // frames of the outputs (>= n_frames)
-  int n_freqs;             // F, a multiple of 2 * FT
+  int n_freqs;             // F, a multiple of 32
   int out_len;
   long long re_s_bn, re_s_t;           // element strides; the F axis is contiguous
   long long im_s_bn, im_s_t;
@@ -115,7 +117,10 @@ struct Loader {
   }
 };
 
-template <int P, typename MaskT>
+// kPartial: F is not a multiple of FT, so a tile may hold fewer frequencies
+// (a template branch: with F a multiple of FT the guards compile away, as
+// they cost the flagship's batch-128 launch 11% when they were always there).
+template <int P, typename MaskT, bool kPartial>
 __global__ void __launch_bounds__(kThreads, 1) masked_istft_bwd_kernel(const Params p) {
   extern __shared__ __align__(128) uint8_t smem[];
   float* P_s = reinterpret_cast<float*>(smem);   // [kPassRows][kOutLD], after each GEMM
@@ -123,9 +128,10 @@ __global__ void __launch_bounds__(kThreads, 1) masked_istft_bwd_kernel(const Par
   const int F = p.n_freqs;
   const int T = p.n_frames;
   const int hop = F / kOverlap;
-  const int n_ftiles = F / FT;
+  const int n_ftiles = kPartial ? (F + FT - 1) / FT : F / FT;
   const int f_tile = blockIdx.x % n_ftiles;
   const int f0 = f_tile * FT;
+  const int n_f = kPartial ? min(FT, F - f0) : FT;   // the tile's frequencies, a multiple of 32
   const long long bn = blockIdx.x / n_ftiles;
   const Rows rows(T);
   const int chunk = rows.per_tile ? T : kPassRows;   // frames of a pass
@@ -180,6 +186,7 @@ __global__ void __launch_bounds__(kThreads, 1) masked_istft_bwd_kernel(const Par
         // the compiler may not move loads across)
 #pragma unroll
         for (int j0 = 0; j0 < FT / 8; j0 += 4) {
+          if (kPartial && 8 * j0 >= n_f) break;   // columns past the tile's frequencies
           float2 rv[4], iv[4], mv[4];
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
@@ -203,8 +210,9 @@ __global__ void __launch_bounds__(kThreads, 1) masked_istft_bwd_kernel(const Par
       __syncthreads();
 
       // Track sum in a fixed order: column c is always summed by thread c,
-      // which alone reads and writes it in d_re / d_im.
-      {
+      // which alone reads and writes it in d_re / d_im (columns past the
+      // tile's frequencies are skipped).
+      if (!kPartial || threadIdx.x % FT < n_f) {
         const int c = threadIdx.x;
         float* dst = (c < FT ? p.d_re : p.d_im) + bn * p.n_frames_total * (long long)F + f0 +
                      (c % FT);
@@ -227,10 +235,15 @@ __global__ void __launch_bounds__(kThreads, 1) masked_istft_bwd_kernel(const Par
   }
 }
 
+template <int P, bool kPartial>
+void* pick_mask(int mask_is_bf16) {
+  return mask_is_bf16 ? (void*)masked_istft_bwd_kernel<P, __nv_bfloat16, kPartial>
+                      : (void*)masked_istft_bwd_kernel<P, float, kPartial>;
+}
+
 template <int P>
-void* pick(int mask_is_bf16) {
-  return mask_is_bf16 ? (void*)masked_istft_bwd_kernel<P, __nv_bfloat16>
-                      : (void*)masked_istft_bwd_kernel<P, float>;
+void* pick(int mask_is_bf16, bool partial) {
+  return partial ? pick_mask<P, true>(mask_is_bf16) : pick_mask<P, false>(mask_is_bf16);
 }
 
 }  // namespace
@@ -256,7 +269,7 @@ int sag_masked_istft_bwd(const float* g, const float* re, const float* im,
                          long long m_s_bn, long long m_s_tr, long long m_s_t, int device,
                          void* stream) {
   if (n_bn < 1 || n_tracks < 1 || n_frames < kOverlap || n_frames % kOverlap != 0 ||
-      n_frames_total < n_frames || n_freqs % (2 * FT) != 0 ||
+      n_frames_total < n_frames || n_freqs < 32 || n_freqs % 32 != 0 ||
       (precision != kBF16 && precision != kTF32x3)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -286,8 +299,10 @@ int sag_masked_istft_bwd(const float* g, const float* re, const float* im,
   p.m_s_tr = m_s_tr;
   p.m_s_t = m_s_t;
 
-  const long long n_blocks = (long long)n_bn * (n_freqs / FT);
-  void* kernel = precision == kBF16 ? pick<kBF16>(mask_is_bf16) : pick<kTF32x3>(mask_is_bf16);
+  const long long n_blocks = (long long)n_bn * ((n_freqs + FT - 1) / FT);
+  const bool partial = n_freqs % FT != 0;
+  void* kernel = precision == kBF16 ? pick<kBF16>(mask_is_bf16, partial)
+                                    : pick<kTF32x3>(mask_is_bf16, partial);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   void* args[] = {&p};

@@ -16,7 +16,8 @@
 // transpose copy reaches device memory.
 //
 // Design: K1 with another source for the mask. The block (FwdBlock: one
-// batch row, the tracks of one 128-row pass, 64 hop residues), the rows
+// batch row, the tracks of one 128-row pass, a chunk of frames, 64 hop
+// residues or hop of them when F < 256), the rows
 // (Rows: whole tracks per 64-row warpgroup tile), the GEMM (Ring: wgmma
 // m64n256 on a bulk-TMA ring of basis stages), the basis images
 // (ops/dft.py:mma_basis, kernel "fwd", the same tensors K1 reads), the k
@@ -91,8 +92,8 @@ struct Params {
   const uint8_t* b_lo;   // the tf32 lo part (3xTF32 only)
   float* out;
   int n_tracks;
-  int n_frames;          // frames used (a multiple of 4, at most 128)
-  int n_freqs;           // F, a multiple of kN
+  int n_frames;          // frames used (a multiple of 4)
+  int n_freqs;           // F, a multiple of 32
   int out_len;
   long long re_s_b, re_s_t;            // element strides; re/im's F axis is contiguous
   long long im_s_b, im_s_t;
@@ -146,7 +147,7 @@ template <typename MaskT, bool kVec> struct Loader {
   // scalar route: the block's corner of the mask and its strides
   const MaskT* m0;
   long long m_s_t, m_s_f, m_s_c;
-  int T;
+  int T;                   // frames of the block's chunk
 
   // vector route: start the loads of step s's pieces
   __device__ __forceinline__ void load_pieces(int s) {
@@ -224,13 +225,13 @@ template <typename MaskT, bool kVec> struct Loader {
   }
 };
 
-template <int P, typename MaskT, bool kVec>
+template <int P, typename MaskT, bool kVec, bool kGeneral>
 __global__ void __launch_bounds__(kThreads, 1) masked_istft_nhwc_kernel(const Params p) {
   extern __shared__ __align__(128) uint8_t smem[];
 
   const Rows rows(p.n_frames);
-  const FwdBlock blk(rows, p.n_tracks, p.n_freqs);
-  const int T = rows.T;
+  const FwdBlock<kGeneral> blk(rows, p.n_tracks, p.n_freqs);
+  const int T = blk.nt;   // the chunk's frames (the track's up to 128)
 
   Ring<P> ring;
   ring.init(smem);
@@ -243,14 +244,14 @@ __global__ void __launch_bounds__(kThreads, 1) masked_istft_nhwc_kernel(const Pa
     ld.ok[r] = rows.at(frag_row(r), tl, t) && tl < blk.n_tr && t < T;
     if (!ld.ok[r]) tl = t = 0;
     ld.rd[r] = (tl * T + t) * kStepFreqs + ld.col;
-    ld.re[r] = p.re + blk.bn * p.re_s_b + (long long)t * p.re_s_t;
-    ld.im[r] = p.im + blk.bn * p.im_s_b + (long long)t * p.im_s_t;
+    ld.re[r] = p.re + blk.bn * p.re_s_b + (long long)(blk.t0 + t) * p.re_s_t;
+    ld.im[r] = p.im + blk.bn * p.im_s_b + (long long)(blk.t0 + t) * p.im_s_t;
   }
   ld.stage_s = reinterpret_cast<float*>(smem + kSmemBytes);
   ld.step_elems = kStepFreqs * p.m_s_f;
   ld.T = T;
   const MaskT* m0 = static_cast<const MaskT*>(p.mask) + blk.bn * p.m_s_b +
-                    (long long)blk.tr0 * p.m_s_c;
+                    (long long)blk.t0 * p.m_s_t + (long long)blk.tr0 * p.m_s_c;
   if constexpr (kVec) {
     // piece i = ((group of 4 tracks) * T + frame) * 16 + frequency
     ld.n_stage = (blk.n_tr / kVecTracks) * T * kStepFreqs;
@@ -280,15 +281,21 @@ __global__ void __launch_bounds__(kThreads, 1) masked_istft_nhwc_kernel(const Pa
   fwd_epilogue(acc, smem, rows, blk, p.n_freqs, p.out, p.n_tracks, p.out_len);
 }
 
-template <int P, typename MaskT>
+template <int P, typename MaskT, bool kGeneral>
 void* pick_route(int vec) {
-  return vec ? (void*)masked_istft_nhwc_kernel<P, MaskT, true>
-             : (void*)masked_istft_nhwc_kernel<P, MaskT, false>;
+  return vec ? (void*)masked_istft_nhwc_kernel<P, MaskT, true, kGeneral>
+             : (void*)masked_istft_nhwc_kernel<P, MaskT, false, kGeneral>;
+}
+
+template <int P, bool kGeneral>
+void* pick_mask(int mask_is_bf16, int vec) {
+  return mask_is_bf16 ? pick_route<P, __nv_bfloat16, kGeneral>(vec)
+                      : pick_route<P, float, kGeneral>(vec);
 }
 
 template <int P>
-void* pick(int mask_is_bf16, int vec) {
-  return mask_is_bf16 ? pick_route<P, __nv_bfloat16>(vec) : pick_route<P, float>(vec);
+void* pick(int mask_is_bf16, int vec, bool general) {
+  return general ? pick_mask<P, true>(mask_is_bf16, vec) : pick_mask<P, false>(mask_is_bf16, vec);
 }
 
 }  // namespace
@@ -314,7 +321,7 @@ int sag_masked_istft_nhwc_fwd(const float* re, const float* im, const void* mask
                               long long m_s_t, long long m_s_f, long long m_s_c, int device,
                               void* stream) {
   if (n_b < 1 || n_tracks < 1 || n_frames < kOverlap || n_frames % kOverlap != 0 ||
-      n_frames > kPassRows || n_freqs % kN != 0 ||
+      n_freqs < 32 || n_freqs % 32 != 0 ||
       (precision != kBF16 && precision != kTF32x3)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -350,8 +357,9 @@ int sag_masked_istft_nhwc_fwd(const float* re, const float* im, const void* mask
   p.m_s_c = m_s_c;
 
   const long long n_blocks = fwd_blocks(n_b, n_tracks, n_frames, n_freqs);
-  void* kernel = precision == kBF16 ? pick<kBF16>(mask_is_bf16, vec)
-                                    : pick<kTF32x3>(mask_is_bf16, vec);
+  const bool general = fwd_general(n_frames, n_freqs);
+  void* kernel = precision == kBF16 ? pick<kBF16>(mask_is_bf16, vec, general)
+                                    : pick<kTF32x3>(mask_is_bf16, vec, general);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              kNhwcSmemBytes);
   if (err != cudaSuccess) return (int)err;

@@ -71,15 +71,20 @@ def _mma_layout(wind_size: int, kernel: str, precision: str) -> np.ndarray:
     c = 8 nb + i. K1: row 16 s + 4 tig + j of C (half 0) or S (half 1), at
     column q * hop + 64 tile + rr, c = 64 q + rr. K2: row
     32 s + 16 half + 4 tig + j of C (c < 128) or S at column
-    128 tile + c % 128."""
+    128 tile + c % 128. Columns past the bases' edge (residues rr >= hop
+    when F < 256, frequencies >= F when F < 128, and a last partial tile)
+    are zero. F must be a multiple of 32."""
+    if wind_size < 32 or wind_size % 32:
+        raise ValueError(f"the kernels take F a multiple of 32, got {wind_size}")
     n_w, n_e = MMA_ROUTES[precision]
     hop = wind_size // 4
     c_b, s_b = _basis(wind_size)
-    bases = np.stack([c_b, s_b])
+    # one zero column past the edge, where out-of-range columns read
+    bases = np.pad(np.stack([c_b, s_b]), ((0, 0), (0, 0), (0, 1)))
     if kernel == "fwd":
-        tiles, steps = hop // MMA_RESIDUES, wind_size // 16
+        tiles, steps = -(-hop // MMA_RESIDUES), wind_size // 16
     elif kernel == "bwd":
-        tiles, steps = wind_size // MMA_FREQS, wind_size // 32
+        tiles, steps = -(-wind_size // MMA_FREQS), wind_size // 32
     else:
         raise ValueError(f"kernel must be 'fwd' or 'bwd', got {kernel!r}")
     tile, s, w, kc, nb, i, e = np.ogrid[:tiles, :steps, :n_w, :2, :32, :8, :n_e]
@@ -87,10 +92,11 @@ def _mma_layout(wind_size: int, kernel: str, precision: str) -> np.ndarray:
     col = 8 * nb + i
     if kernel == "fwd":
         row = 16 * s + 4 * tig + j
-        return bases[kc, row, (col // MMA_RESIDUES) * hop + MMA_RESIDUES * tile
-                     + col % MMA_RESIDUES]
+        res = MMA_RESIDUES * tile + col % MMA_RESIDUES
+        return bases[kc, row, np.where(res < hop, (col // MMA_RESIDUES) * hop + res, wind_size)]
     row = 32 * s + 16 * kc + 4 * tig + j
-    return bases[col // MMA_FREQS, row, MMA_FREQS * tile + col % MMA_FREQS]
+    freq = MMA_FREQS * tile + col % MMA_FREQS
+    return bases[col // MMA_FREQS, row, np.where(freq < wind_size, freq, wind_size)]
 
 
 def mma_basis(wind_size: int, device, kernel: str, precision: str

@@ -16,7 +16,8 @@ in place as a strided view; CUDA tensors launch K3
 (csrc/masked_istft_nhwc.cu) and differentiate through K2 on the mask made
 track-major, as _nhwc_bwd does; CPU tensors run `masked_istft_nhwc_plain`.
 There is no fallback between the routes: a CUDA input a kernel cannot take
-raises.
+raises. The kernels take any frame count and any F that is a multiple of
+32 (the model's F is a power of two, 1024 and up where the model builds).
 
 `precision` (the model's pallas_precision) picks K1's, K2's and K3's
 route on the tensor cores (csrc/istft_mma.cuh), and the backward gets the
@@ -60,7 +61,6 @@ HEADERS = (CSRC / "istft_mma.cuh",)   # included by the sources; in the hash
 BUILD_DIR = Path(__file__).parent / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_FWD_FRAMES = 128   # K1, K3: a block's tracks are one pass of 128 (track, frame) rows
 PRECISIONS = {"default": 0, "highest": 1}   # routes: bf16, 3xTF32
 NHWC_VEC_TRACKS = 4    # K3's vector route: one load brings 4 tracks of a (t, f)
 
@@ -255,6 +255,12 @@ def _bn_stride(x: torch.Tensor) -> int:
     return x.stride(1) if n_in > 1 else x.stride(0)
 
 
+def _check_freqs(f: int):
+    # a K2 step is 32 samples of a frame, a K1/K3 step 16 frequencies, and
+    # the comb scatter loads g as float4 (hop = F/4 a multiple of 8)
+    _check(f >= 32 and f % 32 == 0, f"F must be a multiple of 32, got {f}")
+
+
 def _check_inputs(re, im, mask, n_overlap):
     """Checks what both kernels take; returns (b, n_in, tracks, t, t_use, f)."""
     _check(n_overlap == 4, f"n_overlap must be 4, got {n_overlap}")
@@ -270,7 +276,7 @@ def _check_inputs(re, im, mask, n_overlap):
            f"got {tuple(mask.shape)}")
     t_use = (t // n_overlap) * n_overlap
     _check(t_use >= n_overlap, f"needs at least {n_overlap} frames, got {t}")
-    _check(f % 256 == 0, f"F must be a multiple of 256, got {f}")
+    _check_freqs(f)
     for name, x, align in (("re", re, 16), ("im", im, 16),
                            ("mask", mask, 4 * mask.element_size())):
         _check(x.stride(-1) == 1, f"{name}'s last axis must be contiguous")
@@ -293,7 +299,6 @@ def _raise_on(err: int, lib, what: str):
 def _launch(re, im, mask, n_overlap, precision):
     global launch_count
     b, n_in, tracks, t, t_use, f = _check_inputs(re, im, mask, n_overlap)
-    _check(t_use <= MAX_FWD_FRAMES, f"K1 takes at most {MAX_FWD_FRAMES} frames, got {t_use}")
     lib = _library()
     b_hi, b_lo = mma_basis(f, re.device, "fwd", precision)
     out_len = (t_use // n_overlap) * f - (n_overlap - 1) * (f // n_overlap)
@@ -360,8 +365,8 @@ def nhwc_vector_route(mask: torch.Tensor, t_use: int) -> bool:
             and mask.data_ptr() % (v * mask.element_size()) == 0)
 
 
-def _launch_nhwc(re, im, mask, n_overlap, precision):
-    global nhwc_launch_count
+def _check_nhwc_inputs(re, im, mask, n_overlap):
+    """Checks what K3 takes; returns (b, tracks, t_use, f)."""
     _check(n_overlap == 4, f"n_overlap must be 4, got {n_overlap}")
     _check(re.dtype == im.dtype == torch.float32, f"re/im must be float32, got "
            f"{re.dtype}/{im.dtype}")
@@ -375,13 +380,18 @@ def _launch_nhwc(re, im, mask, n_overlap, precision):
     tracks = mask.shape[3]
     t_use = (t // n_overlap) * n_overlap
     _check(t_use >= n_overlap, f"needs at least {n_overlap} frames, got {t}")
-    _check(t_use <= MAX_FWD_FRAMES, f"K3 takes at most {MAX_FWD_FRAMES} frames, got {t_use}")
-    _check(f % 256 == 0, f"F must be a multiple of 256, got {f}")
+    _check_freqs(f)
     for name, x in (("re", re), ("im", im)):
         _check(x.stride(-1) == 1, f"{name}'s last axis must be contiguous")
         _check(all(st % 4 == 0 for st, n in zip(x.stride()[:-1], x.shape[:-1]) if n > 1),
                f"{name}'s strides {x.stride()} must be multiples of 4 elements")
         _check(x.data_ptr() % 16 == 0, f"{name} must be 16-byte aligned")
+    return b, tracks, t_use, f
+
+
+def _launch_nhwc(re, im, mask, n_overlap, precision):
+    global nhwc_launch_count
+    b, tracks, t_use, f = _check_nhwc_inputs(re, im, mask, n_overlap)
     lib = _library()
     b_hi, b_lo = mma_basis(f, re.device, "fwd", precision)
     out_len = (t_use // n_overlap) * f - (n_overlap - 1) * (f // n_overlap)

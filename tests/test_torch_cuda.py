@@ -37,6 +37,14 @@ def _rel_l2(a, b) -> float:
     (2, 32, 28, 1024, torch.float32, (2e-4, 1e-4)),     # flagship track count and T
     (3, 5, 30, 1024, torch.float32, (2e-4, 1e-4)),      # ragged: TR 5, T % 4 == 2
     (2, 32, 28, 1024, torch.bfloat16, (2e-4, 1e-4)),
+    # the shapes the CLIs' flags reach (F, mask frames), and partial tiles
+    (2, 8, 58, 128, torch.float32, (2e-4, 1e-4)),      # one track per 64-row tile
+    (2, 8, 58, 64, torch.float32, (2e-4, 1e-4)),       # F = 64: 16 residues a block
+    (2, 4, 108, 64, torch.bfloat16, (2e-4, 1e-4)),     # one track spans both tiles
+    (1, 3, 140, 1024, torch.float32, (2e-4, 1e-4)),    # T > 128: overlapping chunks
+    (1, 2, 390, 1024, torch.float32, (2e-4, 1e-4)),    # four chunks
+    (2, 4, 19, 2048, torch.float32, (2e-4, 1e-4)),     # F = 2048, 16 of 19 frames used
+    (2, 3, 30, 160, torch.float32, (2e-4, 1e-4)),      # F = 160: partial residue tile
 ])
 def test_kernel_matches_plain(b, tracks, t, wind, mask_dtype, tol, precision):
     """Each route against the plain version at its precision: "highest"
@@ -69,6 +77,12 @@ def test_kernel_matches_plain(b, tracks, t, wind, mask_dtype, tol, precision):
     (3, 5, 30, 1024, torch.float32, (5e-4, 1e-4)),      # ragged: TR 5, T % 4 == 2
     (1, 3, 160, 256, torch.float32, (5e-4, 1e-4)),      # T > 128: frames chunked per track
     (2, 32, 28, 1024, torch.bfloat16, (1e-3, 1e-2)),   # d_mask rounded to bf16 by both
+    (2, 8, 58, 128, torch.float32, (5e-4, 1e-4)),      # F = 128: one frequency tile
+    (2, 8, 58, 64, torch.float32, (5e-4, 1e-4)),       # F = 64: half a tile
+    (2, 4, 108, 64, torch.bfloat16, (1e-3, 1e-2)),
+    (1, 3, 140, 1024, torch.float32, (5e-4, 1e-4)),
+    (2, 4, 19, 2048, torch.float32, (5e-4, 1e-4)),
+    (2, 3, 30, 160, torch.float32, (5e-4, 1e-4)),      # F = 160: a partial last tile
 ])
 def test_bwd_kernel_matches_plain(b, tracks, t, wind, mask_dtype, tol, precision):
     """K2 against masked_istft_bwd_plain at the same precision; tolerances
@@ -136,6 +150,11 @@ NHWC_CASES = [  # b, tracks, t, wind, mask dtype, K3's vector route
     (3, 5, 30, 1024, torch.float32, False),      # ragged: TR 5 (scalar loads), T % 4
     (2, 32, 28, 1024, torch.bfloat16, True),     # bf16 4-track vector loads
     (3, 5, 30, 1024, torch.bfloat16, False),     # bf16 scalar loads
+    (2, 32, 28, 64, torch.float32, True),        # F = 64: 4 steps of staging
+    (2, 8, 58, 128, torch.float32, False),       # one track per 64-row tile
+    (2, 4, 108, 64, torch.bfloat16, False),      # one track spans both tiles
+    (1, 4, 140, 1024, torch.float32, False),     # T > 128: overlapping chunks
+    (2, 8, 19, 2048, torch.bfloat16, True),      # F = 2048, 16 of 19 frames used
 ]
 
 
@@ -306,3 +325,66 @@ def test_reduced_flagship_train_step_card_matches_cpu():
     (loss_c, g_c), (loss_g, g_g) = results["cpu"], results["cuda"]
     assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)
     assert float((g_g - g_c).norm() / g_c.norm()) <= 1e-4
+
+
+def _packed_clip(folder, seconds=2, hw=(64, 128), seed=0):
+    """A packed clip (data/packed.py layout) with flow, written with numpy
+    only (the card host has no Pillow): PCM16 FOA, u8 frames, flow bytes
+    and limits, and the audio power index."""
+    import json
+
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    n, rate, frames = seconds * 48000, 48000, seconds * 10
+    t = np.arange(n) / rate
+    w = 0.3 * np.sin(2 * np.pi * 440 * t) + 0.1 * rng.randn(n)
+    az = np.linspace(-np.pi, np.pi, n)
+    foa = np.stack([w, w * np.sin(az), 0.2 * w, w * np.cos(az)], 1)
+    pack = folder / "packed"
+    pack.mkdir(parents=True)
+    np.save(pack / "ambix.npy", np.round(foa * 26000).astype(np.int16))
+    np.save(pack / "video.npy", rng.randint(0, 256, (frames,) + hw + (3,)).astype(np.uint8))
+    np.save(pack / "flow.npy", rng.randint(0, 256, (frames,) + hw + (3,)).astype(np.uint8))
+    lims = np.stack([np.zeros(frames), rng.uniform(1, 3, frames)], 1).astype(np.float32)
+    np.save(pack / "flow_lims.npy", lims)
+    (pack / "meta.json").write_text(json.dumps({
+        "version": 1, "rate": rate, "num_channels": 4, "num_files": seconds,
+        "audio_dtype": "int16", "video_frames": frames, "frame_shape": list(hw) + [3],
+        "flow_frames": frames, "flow_shape": list(hw) + [3]}))
+    (folder / "audio_pow.lst").write_text(
+        "".join(f"{i / 10 + 0.5} 0.3\n" for i in range((seconds - 1) * 10)))
+
+
+@pytest.mark.cuda
+def test_default_model_deploy_card_matches_cpu(tmp_path):
+    """The default model (audio, flow and video encoders; 8 tracks, 64x128
+    frames) deployed by MonoToAmbix's per-window host path at batch 3 over
+    5 windows (the last batch padded): the card (K1 at
+    pallas_precision="highest") against the CPU, relative L2 <= 1e-4, the
+    W passthrough equal, K1 launched once per batch."""
+    _need_card()
+    import numpy as np
+
+    from spatialaudiogen_tpu_torch.config import TrainConfig
+    from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix
+    from spatialaudiogen_tpu_torch.models.convert import save_params
+
+    cfg = TrainConfig(model_dir=str(tmp_path / "model"), encoders=("audio", "flow", "video"),
+                      num_sep_tracks=8, frame_hw=(64, 128), pallas_precision="highest")
+    cfg.save()
+    model = SptAudioGen(cfg.model_config(), frame_hw=(64, 128)).init_weights(
+        torch.Generator().manual_seed(0))
+    save_params(cfg.model_dir, model.state_dict())
+    _packed_clip(tmp_path / "clip")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        count = k1.launch_count
+        out[dev] = MonoToAmbix(cfg.model_dir, batch_size=3, device=dev).deploy(
+            str(tmp_path / "clip"), 0.5, 0.5)
+    assert k1.launch_count == count + 2
+    assert out["cuda"].shape == out["cpu"].shape == (24000, 4)
+    np.testing.assert_array_equal(out["cuda"][:, 0], out["cpu"][:, 0])
+    err = float(np.linalg.norm(out["cuda"][:, 1:] - out["cpu"][:, 1:])
+                / np.linalg.norm(out["cpu"][:, 1:]))
+    assert err <= 1e-4, err

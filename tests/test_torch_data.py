@@ -105,10 +105,21 @@ def test_sample_reader_gives_the_same_chunks(db, clip):
         np.testing.assert_array_equal(a["video"], b["video"])
 
 
-def test_sample_reader_refuses_flow(db):
-    root, ids = db
-    with pytest.raises(NotImplementedError, match="flow"):
-        SampleReader(os.path.join(root, ids[0]), return_flow=True)
+def test_sample_reader_reads_flow(tmp_path):
+    """return_flow=True on a clip with flow jpgs: the JAX reader's chunks,
+    flow maps included, bit for bit (tests/test_torch_flow.py holds the
+    flow readers themselves)."""
+    make_synthetic_dataset(str(tmp_path), n_videos=1, duration=2.0, frame_hw=(32, 64),
+                           with_flow=True, seed=4)
+    folder = str(tmp_path / "synth000")
+    kw = dict(return_video=False, return_flow=True, random_rotations=True)
+    mine = SampleReader(folder, rng=np.random.RandomState(2), **kw)
+    ref = JaxSampleReader(folder, rng=np.random.RandomState(2), **kw)
+    for _ in range(2):
+        a, b = mine.get(), ref.get()
+        assert set(a) == set(b) == {"id", "ambix", "flow"}
+        assert a["flow"].shape == (1, 32, 64, 3) and a["flow"].dtype == np.float32
+        np.testing.assert_array_equal(a["flow"], b["flow"])
 
 
 def _batches(feeder, n):

@@ -161,8 +161,51 @@ def test_yuv420_conversion_matches_jax():
     np.testing.assert_allclose(got, ref, atol=1e-6)
 
 
-def test_flow_config_not_ported(tmp_path):
-    with open(tmp_path / "train-params.json", "w") as f:
-        json.dump({"encoders": ["audio", "video", "flow"]}, f)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MonoToAmbix(str(tmp_path), device="cpu")
+def test_flow_config_builds_the_flow_encoder(tmp_path):
+    """A model dir trained with flow loads into MonoToAmbix: its own
+    flow_encoder ResNet18 beside the video encoder, every params.npz key
+    taken (strict), and deploy routed to the per-window host path
+    (tests/test_torch_flow.py holds that path against the JAX engine)."""
+    from spatialaudiogen_tpu_torch.config import TrainConfig as TorchTrainConfig
+    from spatialaudiogen_tpu_torch.models.convert import save_params
+    from spatialaudiogen_tpu_torch.models.sptaudiogen import SptAudioGen as TorchModel
+
+    cfg = TorchTrainConfig(model_dir=str(tmp_path), encoders=("audio", "video", "flow"),
+                           num_sep_tracks=2, frame_hw=FRAME_HW)
+    cfg.save()
+    model = TorchModel(cfg.model_config(), frame_hw=FRAME_HW).init_weights(
+        torch.Generator().manual_seed(0))
+    save_params(str(tmp_path), model.state_dict())
+    engine = MonoToAmbix(str(tmp_path), batch_size=2, device="cpu")
+    names = dict(engine.model.named_children())
+    assert {"video_encoder", "flow_encoder"} <= set(names)
+    assert names["flow_encoder"] is not names["video_encoder"]
+    sd = engine.model.state_dict()
+    assert torch.equal(sd["flow_encoder.conv1.conv.weight"],
+                       model.state_dict()["flow_encoder.conv1.conv.weight"])
+
+
+@pytest.mark.parametrize("flags, item", [
+    (["video.mp4"], "15d"),
+    (["--save_video"], "15d"),
+    (["--overlay_map"], "15d"),
+    (["--VR"], "15d"),
+    (["--n_data", "2"], "14"),
+])
+def test_cli_refuses_unported_flags(tmp_path, flags, item):
+    """The reference's invocation parses (VIDEO, --save_video,
+    --overlay_map, --VR, --n_data); the flags whose paths are not ported
+    raise NotImplementedError naming their ROADMAP item, before any model
+    is loaded."""
+    argv = [str(tmp_path / "model"), str(tmp_path / "clip")] + flags + ["--device", "cpu"]
+    with pytest.raises(NotImplementedError, match=f"item {item}"):
+        cli_main(argv)
+
+
+def test_cli_parses_the_reference_invocation():
+    from spatialaudiogen_tpu_torch.cli.deploy import parse_arguments
+
+    args = parse_arguments(["model", "clip", "video.mp4", "--save_ambix", "--save_video",
+                            "--overlay_map", "--VR", "--n_data", "1"])
+    assert args.video == "video.mp4" and args.save_video and args.overlay_map and args.VR
+    assert args.n_data == 1 and parse_arguments(["model", "clip"]).video == ""

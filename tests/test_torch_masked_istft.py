@@ -195,19 +195,18 @@ def _wgmma_a(values: np.ndarray, n_wgmmas: int) -> np.ndarray:
     return out
 
 
-@pytest.mark.parametrize("precision", ["default", "highest"])
-def test_k1_basis_layout_gives_the_gemm(precision):
-    """K1's GEMM emulated step by step from the laid-out bases and the A
-    fragments (mask applied as staged) equals (re*m) @ C + (im*m) @ S at
-    the block's 256 columns {q*hop + 64 tile + rr}."""
-    f, t, tile = 512, 8, 1
+def _k1_layout_gemm(f, t, tile, precision):
+    """K1's GEMM emulated step by step from the laid-out bases of residue
+    tile `tile` and the A fragments (mask applied as staged), against
+    (re*m) @ C + (im*m) @ S at the block's columns {q*hop + 64 tile + rr};
+    columns whose residue is past hop must be zero."""
     hop = f // 4
     rng = np.random.RandomState(14)
     re, im, m = (rng.randn(t, f).astype(np.float32) for _ in range(3))
     n_w = 2 if precision == "default" else 4
     step_bytes = n_w * 8192
     hi_t, lo_t = (x.view(-1) for x in mma_basis(f, "cpu", "fwd", precision))
-    per_tile = hi_t.numel() // (hop // 64)
+    per_tile = hi_t.numel() // -(-hop // 64)
     acc = np.zeros((t, 256), np.float64)
     for s in range(f // 16):
         freqs = 16 * s + 4 * np.arange(4)[:, None] + np.arange(4)[None]   # (tig, j)
@@ -220,22 +219,24 @@ def test_k1_basis_layout_gives_the_gemm(precision):
             b = b + _wgmma_b(lo_t[sl], n_w)
         acc += np.einsum("rhk,hkn->rn", a, b)
     c, s_ = basis(f, "cpu")
-    cols = (np.arange(256) // 64) * hop + 64 * tile + np.arange(256) % 64
+    res = 64 * tile + np.arange(256) % 64
+    live = res < hop
+    cols = ((np.arange(256) // 64) * hop + res)[live]
     want = (re * m) @ c.numpy()[:, cols] + (im * m) @ s_.numpy()[:, cols]
     tol = 2e-2 if precision == "default" else 1e-5
-    np.testing.assert_allclose(acc, want, atol=tol * np.abs(want).max(), rtol=0)
+    np.testing.assert_allclose(acc[:, live], want, atol=tol * np.abs(want).max(), rtol=0)
+    assert not acc[:, ~live].any()
 
 
-@pytest.mark.parametrize("precision", ["default", "highest"])
-def test_k2_basis_layout_gives_the_gemm(precision):
+def _k2_layout_gemm(f, rows, tile, precision):
     """K2's GEMM emulated the same way: A the scattered cotangent (slot
     (half, tig, j) is sample 32 s + 16 half + 4 tig + j of the frame), B
-    the laid-out [C | S] tile of the block's 128 output frequencies."""
-    f, rows, tile = 512, 6, 2
+    the laid-out [C | S] tile of the block's 128 output frequencies
+    (columns past F zero)."""
     gx = np.random.RandomState(15).randn(rows, f).astype(np.float32)
     n_w = 2 if precision == "default" else 4
     hi_t, lo_t = (x.view(-1) for x in mma_basis(f, "cpu", "bwd", precision))
-    per_tile = hi_t.numel() // (f // 128)
+    per_tile = hi_t.numel() // -(-f // 128)
     n_el = n_w * 8192 // hi_t.element_size()
     acc = np.zeros((rows, 256), np.float64)
     for s in range(f // 32):
@@ -247,7 +248,118 @@ def test_k2_basis_layout_gives_the_gemm(precision):
             b = b + _wgmma_b(lo_t[sl], n_w)
         acc += np.einsum("rhk,hkn->rn", _wgmma_a(vals, n_w), b)
     c, s_ = basis(f, "cpu")
-    cols = 128 * tile + np.arange(128)
+    freq = 128 * tile + np.arange(128)
+    live = np.concatenate([freq < f, freq < f])
+    cols = freq[freq < f]
     want = np.concatenate([gx @ c.numpy()[:, cols], gx @ s_.numpy()[:, cols]], -1)
     tol = 2e-2 if precision == "default" else 1e-5
-    np.testing.assert_allclose(acc, want, atol=tol * np.abs(want).max(), rtol=0)
+    np.testing.assert_allclose(acc[:, live], want, atol=tol * np.abs(want).max(), rtol=0)
+    assert not acc[:, ~live].any()
+
+
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_k1_basis_layout_gives_the_gemm(precision):
+    """The block's 256 columns {q*hop + 64 tile + rr} at F = 512, tile 1."""
+    _k1_layout_gemm(512, 8, 1, precision)
+
+
+@pytest.mark.parametrize("precision", ["default", "highest"])
+def test_k2_basis_layout_gives_the_gemm(precision):
+    """The [C | S] tile of the block's 128 output frequencies at F = 512,
+    tile 2."""
+    _k2_layout_gemm(512, 6, 2, precision)
+
+
+@pytest.mark.parametrize("precision", ["default", "highest"])
+@pytest.mark.parametrize("f, tile", [
+    (64, 0),     # hop 16 < 64: 16 live residues, K2's tile half full
+    (128, 0),    # hop 32; K2 one full tile
+    (160, 0),    # not a power of two: hop 40; K2's second tile 32 wide
+    (160, 1),
+    (2048, 7),   # the last of 8 residue tiles, 16 frequency tiles
+])
+def test_basis_layout_small_and_partial_tiles(f, tile, precision):
+    """Small F and partial tiles: the live columns give the GEMM, the
+    columns past the bases' edge are zero (K1's residues >= hop, K2's
+    frequencies >= F)."""
+    if tile < -(-(f // 4) // 64):
+        _k1_layout_gemm(f, 6, tile, precision)
+    _k2_layout_gemm(f, 6, min(tile, -(-f // 128) - 1), precision)
+
+
+def test_mma_basis_refuses_f_off_the_step():
+    with pytest.raises(ValueError, match="multiple of 32"):
+        mma_basis(48, "cpu", "fwd", "default")
+
+
+# ---------------------------------------------------------------------------
+# Shapes beyond the flagship: every (F, mask frames) the CLIs' flags reach
+
+# (F, mask frames) of a few CLI flag sets that PRs 1-5's kernels refused
+# (F below 256, more than 128 used frames) or never ran (F = 2048)
+NEW_SHAPES = [(64, 58), (128, 58), (1024, 140), (2048, 19)]
+
+
+def _random_spectra(tracks, t, f, seed):
+    """Random (1, 1, T, F) spectra and a sigmoid (1, 1, TR, T, F) mask."""
+    rng = np.random.RandomState(seed)
+    re, im = (rng.randn(1, 1, t, f).astype(np.float32) for _ in range(2))
+    mask = 1 / (1 + np.exp(-rng.randn(1, 1, tracks, t, f)))
+    return re, im, mask.astype(np.float32)
+
+
+@pytest.mark.parametrize("f, t", NEW_SHAPES)
+def test_plain_matches_pallas_at_the_new_shapes(f, t):
+    """The plain version against masked_istft_pallas in interpret mode at
+    small F, long tracks and F = 2048 (2e-4 / 1e-4, as above)."""
+    re, im, mask = _random_spectra(2, t, f, seed=f + t)
+    want = np.asarray(masked_istft_pallas(jnp.asarray(re), jnp.asarray(im),
+                                          jnp.asarray(mask), 4, True))
+    got = k1.masked_istft_plain(*_torch(re, im, mask), 4).numpy()
+    assert got.shape == want.shape == (1, 1, 2, (t // 4) * f - 3 * f // 4)
+    np.testing.assert_allclose(got, want, atol=2e-4, rtol=1e-4)
+
+
+CLI_SHAPES = [  # cli.train flags (deploy fixes sample_dur 0.1), F, mask frames
+    ({}, 1024, 28),                                          # the flagship
+    ({"audio_rate": 16000, "fft_window": 0.01}, 128, 58),
+    ({"audio_rate": 8000, "fft_window": 0.01}, 64, 58),
+    ({"audio_rate": 16000, "fft_window": 0.005}, 64, 108),
+    ({"sample_duration": 0.7}, 1024, 140),                   # audio-only
+    ({"fft_window": 0.05}, 2048, 19),
+]
+
+
+@pytest.mark.parametrize("flags, f, t", CLI_SHAPES)
+def test_kernels_take_every_cli_shape(flags, f, t):
+    """The wrappers' checks (K1 and K2's _check_inputs, K3's
+    _check_nhwc_inputs) take each (F, mask frames) the CLIs reach, called
+    on meta tensors, so nothing launches. (The JAX model itself builds
+    only for F >= 1024: below that its audio encoder's frequency axis
+    shrinks to nothing; its masked-ISTFT kernel takes any F.)"""
+    from spatialaudiogen_tpu_torch.dsp.geometry import ModelGeometry
+
+    g = ModelGeometry(**flags)
+    assert (g.wind_size, g.n_mask_frames) == (f, t)
+    t_use = (t // 4) * 4
+    for dtype in (torch.float32, torch.bfloat16):
+        re = torch.empty((2, 1, t, f), device="meta")
+        mask = torch.empty((2, 1, 32, t, f), dtype=dtype, device="meta")
+        assert k1._check_inputs(re, re, mask, 4) == (2, 1, 32, t, t_use, f)
+        nhwc = torch.empty((2, 32, t, f), dtype=dtype, device="meta").permute(0, 2, 3, 1)
+        assert k1._check_nhwc_inputs(re[:, 0], re[:, 0], nhwc, 4) == (2, 32, t_use, f)
+
+
+def test_kernels_refuse_what_they_cannot_take():
+    """What no route takes still raises: n_overlap other than 4, F off the
+    32-step, fewer than 4 frames."""
+    re = torch.empty((1, 1, 28, 1024), device="meta")
+    mask = torch.empty((1, 1, 2, 28, 1024), device="meta")
+    with pytest.raises(ValueError, match="n_overlap"):
+        k1._check_inputs(re, re, mask, 2)
+    re48, mask48 = torch.empty((1, 1, 28, 48), device="meta"), torch.empty(
+        (1, 1, 2, 28, 48), device="meta")
+    with pytest.raises(ValueError, match="multiple of 32"):
+        k1._check_inputs(re48, re48, mask48, 4)
+    with pytest.raises(ValueError, match="at least 4 frames"):
+        k1._check_inputs(re[:, :, :3], re[:, :, :3], mask[..., :3, :], 4)

@@ -223,3 +223,24 @@ def test_bwd_cpu_route_ignores_precision():
         grads[precision] = [x.grad for x in args]
     for a, b_ in zip(*grads.values()):
         assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("f, t", [(64, 58), (128, 58), (1024, 140), (2048, 19)])
+def test_plain_matches_pallas_vjp_at_the_new_shapes(f, t):
+    """The plain K2 against the VJP of masked_istft_pallas in interpret
+    mode (whose backward is the Pallas _bwd_kernel) at small F, long tracks
+    and F = 2048; the backward implementations' tolerance, 5e-4 / 1e-4.
+    Frames past the last multiple of 4 get zero gradient in both."""
+    from spatialaudiogen_tpu.ops.pallas_kernels import masked_istft_pallas
+
+    rng = np.random.RandomState(f + t)
+    re, im = (rng.randn(1, 1, t, f).astype(np.float32) for _ in range(2))
+    mask = (1 / (1 + np.exp(-rng.randn(1, 1, 2, t, f)))).astype(np.float32)
+    out, vjp = jax.vjp(lambda r, i, m: masked_istft_pallas(r, i, m, 4, True),
+                       *(jnp.asarray(a) for a in (re, im, mask)))
+    g = rng.randn(*out.shape).astype(np.float32)
+    want = vjp(jnp.asarray(g))
+    got = k.masked_istft_bwd_plain(*_torch(re, im, mask, g), 4)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=5e-4, rtol=1e-4)

@@ -44,6 +44,7 @@ def _pallas(re, im, mask):
 @pytest.mark.parametrize("b, tracks, wind", [
     (2, 12, 256),    # tests/test_pallas.py's case: tracks not a multiple of 8
     (1, 5, 128),     # tracks not a multiple of 4
+    (2, 8, 64),      # F = 64, the smallest F the CLIs' flags reach
 ])
 def test_plain_matches_pallas(b, tracks, wind):
     re, im, mask = _inputs(b, tracks, wind)

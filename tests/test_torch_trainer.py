@@ -1,8 +1,8 @@
 """The port's Trainer, checkpoints and train CLI on the CPU: a smoke run with
 resume on a synthetic dataset (the shape of tests/test_trainer.py), the
 trained params.npz deployed by the port's MonoToAmbix, the SIGTERM stop,
-`--bf16` training, and the CLI's refusals of flags whose paths are not
-ported yet."""
+`--bf16` training, the default encoders (audio, flow, video) through the
+CLI, and the CLI's refusals of flags whose paths are not ported yet."""
 
 import json
 import os
@@ -93,7 +93,7 @@ def test_trained_params_deploy_on_cpu(db, trained):
 
 
 @pytest.mark.parametrize("flags, match", [
-    ([], "flow"),                                   # the JAX default encoders
+    (["--process_id", "0"], "multi-process"),
     (["--n_model", "2"], "multi-device"),
     (["--n_data", "4"], "multi-device"),
     (["--coordinator", "localhost:1234"], "multi-process"),
@@ -102,11 +102,37 @@ def test_trained_params_deploy_on_cpu(db, trained):
 ])
 def test_cli_refuses_unported_flags(tmp_path, flags, match):
     argv = [str(tmp_path / "db"), str(tmp_path / "model")] + flags
-    if flags:
-        argv += ["--encoders", "audio", "video"]
+    argv += ["--encoders", "audio", "video"]
     with pytest.raises(NotImplementedError, match=match):
         cli_train.main(argv)
     assert not (tmp_path / "model").exists()
+
+
+def test_cli_trains_the_default_encoders(tmp_path):
+    """cli.train with the JAX CLI's default --encoders (audio flow video):
+    two CPU steps over clips with flow, finite losses, the flow encoder's
+    weights moved and saved apart from the video encoder's, and the model
+    dir deploys through MonoToAmbix's host path."""
+    db = tmp_path / "flowdb"
+    make_synthetic_dataset(str(db), n_videos=2, duration=3.0, frame_hw=(64, 128),
+                           with_flow=True, seed=2)
+    model_dir = tmp_path / "flowmodel"
+    state, step = cli_train.main([str(db), str(model_dir), "--num_sep_tracks", "2",
+                                  "--frame_hw", "64", "128", "--n_iters", "2",
+                                  "--batch_size", "2", "--n_workers", "1", "--log_every", "1",
+                                  "--ckpt_every", "0", "--device", "cpu"])
+    assert step == 2 and state.model.cfg.encoders == ("audio", "flow", "video")
+    recs = [json.loads(line) for line in (model_dir / "metrics.jsonl").read_text().splitlines()]
+    assert [r["step"] for r in recs] == [0, 1]
+    assert all(np.isfinite(r["total_loss"]) for r in recs)
+    init = create_train_state(TrainConfig.load(str(model_dir)), "cpu", seed=0)
+    trained = load_params(str(model_dir))
+    moved = [k for k, v in init.model.state_dict().items() if not torch.equal(v, trained[k])]
+    assert any(k.startswith("flow_encoder.") and k.endswith(".weight") for k in moved)
+    assert any(k.startswith("video_encoder.") and k.endswith(".weight") for k in moved)
+    ambi = MonoToAmbix(str(model_dir), batch_size=2, device="cpu").deploy(
+        str(db / "synth000"), deploy_start=0.5, deploy_duration=0.3)
+    assert ambi.shape == (int(0.3 * 48000), 4) and np.isfinite(ambi).all()
 
 
 def test_cli_bf16_trains_with_float32_params(db, tmp_path):
