@@ -5,7 +5,7 @@
 
 Drives the flagship model (audio + RGB encoders, unet_mask head with 32
 tracks, 224x448 frames, random weights from a seed) through the port's own
-entry points, deploy and training, in its three configurations (the
+entry points, deploy, training and eval, in its three configurations (the
 default NCHW U-Net in float32, the NHWC-mask U-Net, bf16 compute), then
 the reference's default model (audio + flow + video encoders) the same
 way, and fails (non-zero exit) on the first phase that goes wrong:
@@ -56,17 +56,28 @@ way, and fails (non-zero exit) on the first phase that goes wrong:
      the last batch padded), its realtime factor and the host assembly's
      seconds; the batch-128 forward (f32, bf16) and train step (f32,
      bf16) timed and profiled; cli.train with the default encoders for 6
-     steps (K1 and K2 launched on every step).
+     steps (K1 and K2 launched on every step);
+ 12. eval: cli.eval of the model phase 7 trained, at batch 16 over that
+     phase's dataset (34 samples: three batches, the last padded), in the
+     exact mode (host metrics, native EMD) and with --device_metrics --emd
+     sinkhorn, rows, header and finiteness checked, the two modes' rows
+     held to each other (EMD rtol 5e-3 / atol 5e-4, the rest rtol 1e-4 /
+     atol 1e-5), K1 launched once per batch; eval samples/s, the device
+     step, Sinkhorn's ms per batch; then the device mel-LSD and envelope
+     after a dft_precision="default" forward, TF32 left on in the
+     process, within 1e-5 of float64 on the CPU.
 
 The kernel counts are set to 0 just before each main-path run (deploy,
 the NHWC forward and train step, the f32, bf16 and default-model
-trainings, the default model's deploy) and read just after it. Everything else runs the model's default pallas_precision,
+trainings, the default model's deploy, each cli.eval run) and read just
+after it. Everything else runs the model's default pallas_precision,
 "default" (K1, K2 and K3 on bf16). The second-to-last line is a JSON
 object describing the kernels (top-level times the bf16 route's, the
 3xTF32 route's under "highest"; K1's and K2's launches are those of the
 f32 training, K3's those of the NHWC train step, with the NHWC forward's
 count under "forward_launches", the default model's training's under
-"default_model_launches"; "shapes" names every shape a kernel was held to
+"default_model_launches", K1's in the exact-mode cli.eval under
+"eval_launches"; "shapes" names every shape a kernel was held to
 its plain version at, with its bf16-route times); the last is
 {"ok": true, "device": {...}}. Without a CUDA card the
 script exits non-zero and prints no result. Scratch files go to
@@ -99,6 +110,8 @@ DEPLOY_START, DEPLOY_SECONDS, DEPLOY_BATCH = 0.5, 2.0, 16
 CPU_SECONDS = 0.5
 TRAIN_BATCHES = (32, 128)
 TRAIN_STEPS = 6
+TRAIN_CLIP_SECONDS = 18
+EVAL_BATCH = 16
 K1_REPLACES = "spatialaudiogen_tpu/ops/pallas_kernels.py:47"
 K2_REPLACES = "spatialaudiogen_tpu/ops/pallas_kernels.py:141"
 K3_REPLACES = "spatialaudiogen_tpu/ops/pallas_kernels.py:333"
@@ -546,15 +559,17 @@ def write_model_dir(model_dir: Path, encoders=("audio", "video")) -> None:
     save_params(str(model_dir), model.state_dict())
 
 
-def write_clip(folder: Path, seed: int = SEED, level: float = 1.0) -> np.ndarray:
-    """A 4 s clip in the packed layout (data/packed.py), written with numpy
-    only: PCM16 FOA audio, 10 fps uint8 RGB frames (a bright blob moving
-    over a textured background), flow pixels (angle and magnitude bytes, as
-    the flow jpgs hold them) with per-frame magnitude limits, and the audio
-    power index. `level` scales the audio (1.0: an RMS of about 0.19).
-    Returns the int16 audio."""
+def write_clip(folder: Path, seed: int = SEED, level: float = 1.0,
+               seconds: int = CLIP_SECONDS) -> np.ndarray:
+    """A clip of `seconds` (4 by default) in the packed layout
+    (data/packed.py), written with numpy only: PCM16 FOA audio, 10 fps
+    uint8 RGB frames (a bright blob moving over a textured background),
+    flow pixels (angle and magnitude bytes, as the flow jpgs hold them)
+    with per-frame magnitude limits, and the audio power index. `level`
+    scales the audio (1.0: an RMS of about 0.19). Returns the int16
+    audio."""
     rng = np.random.RandomState(seed)
-    n = CLIP_SECONDS * RATE
+    n = seconds * RATE
     t = np.arange(n) / RATE
     w = level * (0.3 * np.sin(2 * np.pi * 440 * t) + 0.1 * rng.randn(n))
     az = np.linspace(-np.pi, np.pi, n)
@@ -562,7 +577,7 @@ def write_clip(folder: Path, seed: int = SEED, level: float = 1.0) -> np.ndarray
     audio = np.clip(np.round(foa * 32767 * 0.8), -32768, 32767).astype(np.int16)
 
     h, wd = FRAME_HW
-    n_frames = CLIP_SECONDS * 10
+    n_frames = seconds * 10
     ys, xs = np.mgrid[0:h, 0:wd]
     texture = rng.randint(0, 60, (h // 8, wd // 8, 3)).repeat(8, 0).repeat(8, 1)
     frames = np.empty((n_frames, h, wd, 3), np.uint8)
@@ -583,12 +598,12 @@ def write_clip(folder: Path, seed: int = SEED, level: float = 1.0) -> np.ndarray
     np.save(pack / "video.npy", frames)
     np.save(pack / "flow.npy", flow)
     np.save(pack / "flow_lims.npy", lims.astype(np.float32))
-    meta = {"version": 1, "rate": RATE, "num_channels": 4, "num_files": CLIP_SECONDS,
+    meta = {"version": 1, "rate": RATE, "num_channels": 4, "num_files": seconds,
             "audio_dtype": "int16", "video_frames": n_frames,
             "frame_shape": [h, wd, 3], "flow_frames": n_frames, "flow_shape": [h, wd, 3]}
     (pack / "meta.json").write_text(json.dumps(meta))
     with open(folder / "audio_pow.lst", "w") as f:
-        for i in range((CLIP_SECONDS - 1) * 10):
+        for i in range((seconds - 1) * 10):
             tt = i / 10.0 + 0.5
             ss = int(tt * RATE)
             seg = audio[ss: ss + RATE // 10, 0] / 32768.0
@@ -862,10 +877,11 @@ def nhwc_path_phase(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def write_train_db(db: Path) -> None:
-    """Two 4 s packed clips whose audio_pow.lst rows all pass the train
-    feeder's 0.2 silence gate (data/pipeline.py)."""
+    """Two 18 s packed clips whose audio_pow.lst rows all pass the train
+    feeder's 0.2 silence gate (data/pipeline.py); the eval feeder takes
+    every tenth window of each, 34 samples (phase 12)."""
     for i in range(2):
-        write_clip(db / f"clip{i}", seed=SEED + 10 + i, level=1.6)
+        write_clip(db / f"clip{i}", seed=SEED + 10 + i, level=1.6, seconds=TRAIN_CLIP_SECONDS)
         levels = [float(line.split()[1]) for line in
                   (db / f"clip{i}" / "audio_pow.lst").read_text().splitlines()]
         if min(levels) <= 0.2:
@@ -1184,24 +1200,206 @@ def default_model_phase(card: str) -> dict:
     return {"launches": launches[0], "bwd_launches": launches[1]}
 
 
+# ---------------------------------------------------------------------------
+# 12. eval: cli.eval over phase 7's dataset and model, both modes
+# ---------------------------------------------------------------------------
+
+EVAL_MODES = (("exact", ()), ("device", ("--device_metrics", "--emd", "sinkhorn")))
+
+
+def eval_phase(card: str) -> dict:
+    """cli.eval of the flagship that phase 7's cli.train trained, at batch
+    16 over that phase's packed dataset (34 samples: batches of 16, 16 and
+    2 plus 14 zero pad lanes), one feeder thread so that both runs form the
+    same batches (the visual encoder's BatchNorm runs on batch statistics):
+    the exact mode (host metrics, native EMD), then --device_metrics --emd
+    sinkhorn, held to it row by row (EMD rtol 5e-3 / atol 5e-4, the rest
+    rtol 1e-4 / atol 1e-5: tests/test_sinkhorn.py and
+    tests/test_eval_metrics_device.py); K1 launched once per batch in each.
+    Then the TF32 check: a dft_precision="default" flagship's forward, the
+    process's TF32 switches left on, and the device mel-LSD and envelope
+    within 1e-5 of the same functions in float64 on the CPU. Prints eval
+    samples/s per mode, the host pool's busy share of the wall, the device
+    step (forward + battery), Sinkhorn's ms per batch. Returns K1's
+    launches in the exact run."""
+    import threading
+
+    from spatialaudiogen_tpu_torch.cli import eval as cli_eval
+    from spatialaudiogen_tpu_torch.data.pipeline import Feeder
+    from spatialaudiogen_tpu_torch.eval.evaluator import ALL_METRICS, Evaluator
+    from spatialaudiogen_tpu_torch.ops import masked_istft as k
+    from spatialaudiogen_tpu_torch.ops.eval_metrics import (
+        _hilbert_kernel,
+        envelope_dist_fn,
+        mel_lsd_batch_fn,
+    )
+    from spatialaudiogen_tpu_torch.train.steps import eval_step
+
+    db, model_dir = SCRATCH / "train_db", SCRATCH / "trained"
+    n = Feeder(str(db), for_eval=True).count_chunks()
+    n_batches = -(-n // EVAL_BATCH)
+    if n % EVAL_BATCH == 0 or n_batches < 3:
+        raise AssertionError(f"eval data: {n} samples at batch {EVAL_BATCH}")
+    # seconds in run(), in its device batches (eval step, device metrics,
+    # copies back) and in the host pool's metric calls (summed over threads)
+    spent = {"run": 0.0, "device": 0.0, "host": 0.0}
+    lock = threading.Lock()
+    timed = {"run": "run", "_device_batch": "device", "_host_metrics": "host"}
+    originals = {name: getattr(Evaluator, name) for name in timed}
+
+    def timer(name):
+        def call(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return originals[name](self, *args, **kwargs)
+            finally:
+                with lock:
+                    spent[timed[name]] += time.perf_counter() - t0
+        return call
+
+    rows = {}
+    for name in timed:
+        setattr(Evaluator, name, timer(name))
+    try:
+        for mode, flags in EVAL_MODES:
+            argv = [str(model_dir), "--db_dir", str(db), "--batch_size", str(EVAL_BATCH),
+                    "--n_workers", "1", "--device", DEVICE, "--overwrite", *flags]
+            log(f"eval: cli.eval {' '.join(argv[1:])}")
+            spent.update(run=0.0, device=0.0, host=0.0)
+            k.launch_count = k.bwd_launch_count = k.nhwc_launch_count = 0
+            t0 = time.perf_counter()
+            cli_eval.main(argv)
+            wall = time.perf_counter() - t0
+            launches = (k.launch_count, k.bwd_launch_count, k.nhwc_launch_count)
+            lines = (model_dir / "eval-detailed.txt").read_text().splitlines()
+            results = {sid: dict(zip(ALL_METRICS, map(float, vals.split())))
+                       for sid, vals in (line.split(" | ") for line in lines[1:])}
+            values = np.array([[rec[m] for m in ALL_METRICS] for rec in results.values()])
+            log(f"eval {mode} (card, batch {EVAL_BATCH}): {len(results)} rows in "
+                f"{spent['run']:.3f} s -> {len(results) / spent['run']:.2f} samples/s "
+                f"({wall:.3f} s with the model's load); device batches {spent['device']:.3f} "
+                f"s ({100 * spent['device'] / spent['run']:.0f}% of the wall), host pool busy "
+                f"{spent['host']:.3f} s summed over its 8 threads "
+                f"({100 * spent['host'] / spent['run']:.0f}% of the wall); K1/K2/K3 "
+                f"launches {launches[0]}/{launches[1]}/{launches[2]} [{card}]")
+            if lines[0] != "SampleID | " + " ".join(ALL_METRICS) or len(lines) != n + 1:
+                raise AssertionError(f"eval {mode}: {len(lines)} lines, header {lines[0][:60]}")
+            if len(results) != n or not np.isfinite(values).all():
+                raise AssertionError(f"eval {mode}: {len(results)} rows, finite "
+                                     f"{np.isfinite(values).all()}")
+            if launches != (n_batches, 0, 0):
+                raise AssertionError(f"eval {mode}: K1/K2/K3 launched {launches} times in "
+                                     f"{n_batches} batches")
+            rows[mode] = results
+            if mode == "exact":
+                exact_launches = launches[0]
+    finally:
+        for name, fn in originals.items():
+            setattr(Evaluator, name, fn)
+    if sorted(rows["device"]) != sorted(rows["exact"]):
+        raise AssertionError("eval: the two modes scored different samples")
+    worst = {}
+    for m in ALL_METRICS:
+        got = np.array([rows["device"][sid][m] for sid in rows["exact"]])
+        want = np.array([rows["exact"][sid][m] for sid in rows["exact"]])
+        rtol, atol = (5e-3, 5e-4) if m.startswith("emd/") else (1e-4, 1e-5)
+        excess = np.abs(got - want) - (atol + rtol * np.abs(want))
+        worst[m] = float(np.abs(got - want).max())
+        if (excess > 0).any():
+            raise AssertionError(f"eval: device mode's {m} off the exact mode's by "
+                                 f"{worst[m]:.3e} (rtol {rtol:g}, atol {atol:g})")
+    log("eval device vs exact mode, max abs difference: "
+        + ", ".join(f"{m} {v:.2e}" for m, v in worst.items() if m.split("/")[1] == "avg"
+                    or m.startswith("emd/")))
+
+    ev = Evaluator(str(model_dir), db_dir=str(db), batch_size=EVAL_BATCH,
+                   device_metrics=True, emd_mode="sinkhorn", device=DEVICE)
+    g = ev.model.cfg.geometry
+    data = synthetic_batch(torch.Generator(device=DEVICE).manual_seed(SEED + 11), EVAL_BATCH,
+                           g, FRAME_HW, DEVICE)
+    pred, mono, target, _, ps = eval_step(ev.model, data)
+    layout = data["audio_mask"]
+
+    def device_step():
+        p, mo, t, _, per = eval_step(ev.model, data)
+        ev._battery_device_fn(p, mo, t, layout, per["stft"], per["lsd"], per["mse"],
+                              per["snr"])
+
+    step_ms = time_ms(device_step, warmup=2, iters=5)
+    fwd_ms = time_ms(lambda: eval_step(ev.model, data), warmup=2, iters=5)
+    emd_ms = time_ms(lambda: ev._emd_device_fn(pred, mono, target, layout), warmup=1, iters=5)
+    spectral_ms = time_ms(lambda: ev._spectral_device_fn(pred, target), warmup=1, iters=5)
+    log(f"eval device step batch {EVAL_BATCH} (forward + STFT battery + mel-LSD, envelope, "
+        f"Sinkhorn EMD): {step_ms:.2f} ms; forward + STFT battery {fwd_ms:.2f} ms, Sinkhorn "
+        f"EMD (2 x 200 iterations) {emd_ms:.2f} ms, mel-LSD + envelope {spectral_ms:.2f} ms "
+        f"[{card}]")
+    del ev, data, pred, mono, target, ps
+
+    # TF32: a "default" model's forward sets TF32 inside its scope only; the
+    # metrics run full float32 inside theirs, whatever the process has set
+    model = flagship_model(model_dir, dft_precision="default").eval()
+    audio, video = forward_inputs(torch.Generator(device=DEVICE).manual_seed(SEED + 12),
+                                  EVAL_BATCH, model.cfg.geometry)
+    switches = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    with torch.no_grad():
+        model(audio, video)
+    if (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) != switches:
+        raise AssertionError("the \"default\" model's forward left the TF32 switches changed")
+    del model, audio, video
+    gen = torch.Generator().manual_seed(SEED + 13)
+    a = 0.1 * torch.randn((EVAL_BATCH, g.snd_dur, 3), generator=gen)
+    b = a + 0.05 * torch.randn((EVAL_BATCH, g.snd_dur, 3), generator=gen)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        errs = {}
+        for name, fn in (("mel-LSD", mel_lsd_batch_fn(RATE)), ("envelope", envelope_dist_fn(
+                g.snd_dur))):
+            got = fn(a.to(DEVICE), b.to(DEVICE)).cpu().double()
+            errs[name] = float((got - fn(a.double(), b.double())).abs().max())
+        if not (torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32):
+            raise AssertionError("an eval metric did not restore the TF32 switches")
+        # what a leaked switch would cost: the Hilbert product in TF32
+        h = torch.from_numpy(_hilbert_kernel(g.snd_dur)).to(DEVICE)
+        tf32_err = float((h @ a.to(DEVICE)).cpu().double().sub(
+            h.cpu().double() @ a.double()).abs().max())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    log(f"eval metrics on the card after a dft_precision=\"default\" forward, TF32 left on "
+        f"in the process: max abs error against float64 on the CPU "
+        + ", ".join(f"{k_} {v:.2e}" for k_, v in errs.items())
+        + f" (limit 1e-5; the Hilbert product in TF32 alone: {tf32_err:.2e})")
+    if max(errs.values()) > 1e-5:
+        raise AssertionError(f"eval metrics on the card off float64: {errs}")
+    return {"launches": exact_launches}
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     card = preconditions()
     shutil.rmtree(SCRATCH, ignore_errors=True)
     SCRATCH.mkdir()
+
+    def phase(fn, *args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        log(f"[{fn.__name__}: {time.perf_counter() - t0:.1f} s]")
+        return out
+
     try:
-        build_kernels()
-        k1_times = kernel_phase(card)
-        k2_times = bwd_kernel_phase(card)
-        k3_times = nhwc_kernel_phase(card)
-        slice_phase(card)
-        forward_numbers(card)
-        k3 = nhwc_path_phase(card)
-        train = train_phase(card)
-        bf16_train_phase(card)
-        default = default_model_phase(card)
-        train_card_vs_cpu(card, pallas_precision="highest")
-        train_card_vs_cpu(card, pallas_nhwc=True, pallas_precision="highest")
-        train_numbers(card)
+        phase(build_kernels)
+        k1_times = phase(kernel_phase, card)
+        k2_times = phase(bwd_kernel_phase, card)
+        k3_times = phase(nhwc_kernel_phase, card)
+        phase(slice_phase, card)
+        phase(forward_numbers, card)
+        k3 = phase(nhwc_path_phase, card)
+        train = phase(train_phase, card)
+        phase(bf16_train_phase, card)
+        default = phase(default_model_phase, card)
+        phase(train_card_vs_cpu, card, pallas_precision="highest")
+        phase(train_card_vs_cpu, card, pallas_nhwc=True, pallas_precision="highest")
+        phase(train_numbers, card)
+        evaluation = phase(eval_phase, card)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     # The top-level numbers are the "default" (bf16) route's, the one the
@@ -1213,7 +1411,8 @@ def main() -> int:
     for name, source, replaces, times, launches, extra in (
             ("masked_istft", "masked_istft.cu", K1_REPLACES, k1_times,
              {"launches": train["launches"],
-              "default_model_launches": default["launches"]}, ()),
+              "default_model_launches": default["launches"],
+              "eval_launches": evaluation["launches"]}, ()),
             ("masked_istft_bwd", "masked_istft_bwd.cu", K2_REPLACES, k2_times,
              {"launches": train["bwd_launches"],
               "default_model_launches": default["bwd_launches"]}, ()),
@@ -1238,6 +1437,7 @@ def main() -> int:
                       if m.split(".")[0] in ("jax", "spatialaudiogen_tpu"))
     if imported:
         raise AssertionError(f"the port imported {imported[:5]}")
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -48,24 +48,13 @@ from spatialaudiogen_tpu_torch.models.layers import (
     init_weights,
 )
 from spatialaudiogen_tpu_torch.models.resnet import FILTERS, ResNet18
-from spatialaudiogen_tpu_torch.ops.dft import stft_real
+from spatialaudiogen_tpu_torch.ops.dft import precision_scope, stft_real
 from spatialaudiogen_tpu_torch.ops.masked_istft import masked_istft, masked_istft_nhwc
 
 # Audio U-Net architecture constants (model.py:162-164).
 AUDIO_FILTERS = (32, 64, 128, 256, 512)
 AUDIO_KERNELS = ((7, 16), (3, 7), (3, 5), (3, 5), (3, 5))
 AUDIO_STRIDES = ((4, 8), (2, 4), (2, 2), (1, 1), (1, 1))
-
-
-def set_precision(dft_precision: str) -> None:
-    """"highest" turns TF32 off for matmuls and cuDNN convolutions, so every
-    float32 product is a full float32 product (PyTorch's default allows TF32
-    in convolutions, about three decimal digits). "default" allows TF32 in
-    both. These are process-wide switches; the model sets them on every
-    forward from its config."""
-    tf32 = dft_precision != "highest"
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.backends.cudnn.allow_tf32 = tf32
 
 
 def _valid_out(n: int, k: int, s: int) -> int:
@@ -258,9 +247,19 @@ class SptAudioGen(nn.Module):
         run on batch statistics and update their running averages, as the
         JAX model's apply(..., train=True, mutable=["batch_stats"]) does.
         Pass a dict as `taps` to receive the |STFT| (NHWC, as the JAX
-        model's `stft_mag`) and the separation `mask`."""
+        model's `stft_mag`) and the separation `mask`.
+
+        `cfg.dft_precision` holds inside the call (ops.dft.precision_scope):
+        "highest" turns TF32 off for matmuls and cuDNN convolutions, so every
+        float32 product is a full float32 product (PyTorch's default allows
+        TF32 in convolutions, about three decimal digits); "default" allows
+        TF32 in both. A backward runs under its forward's setting only inside
+        a scope of its own (train.steps.train_step)."""
+        with precision_scope(self.cfg.dft_precision):
+            return self._forward(audio, video, flow, taps, train)
+
+    def _forward(self, audio, video, flow, taps, train):
         cfg, g = self.cfg, self.cfg.geometry
-        set_precision(cfg.dft_precision)
         assert audio.shape[1] == g.snd_size, (audio.shape, g.snd_size)
         mono = audio.transpose(1, 2)                         # (B, n_in, snd_size)
         # STFT only over the frames the network touches ([enc_ss, enc_tt))

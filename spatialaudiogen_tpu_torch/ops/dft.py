@@ -4,8 +4,8 @@ spatialaudiogen_tpu.ops.dft).
 The bases are built in numpy exactly as the JAX package builds them
 (float64 angles cast to float32), so both packages multiply by the same
 bits. The matmuls are plain `torch.matmul`: in float32 with TF32 off
-(`dft_precision="highest"`, see models.sptaudiogen.set_precision) they are
-full float32 products.
+(`dft_precision="highest"`, see `precision_scope`) they are full float32
+products.
 
   forward:  Re = (x*w) @ C,  Im = (x*w) @ S     with C/S = cos/sin(-2pi kn/N)
   inverse:  real(ifft(X))_n = (1/N) * (Re @ C + Im @ S)
@@ -13,6 +13,7 @@ full float32 products.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -32,16 +33,46 @@ def _basis(wind_size: int):
 _DEVICE_CONSTS: dict = {}
 
 
+@contextlib.contextmanager
+def precision_scope(dft_precision: str):
+    """TF32 off ("highest": every float32 matmul and cuDNN convolution a
+    full float32 product) or allowed ("default") inside the block. torch's
+    TF32 switches are process-wide, so the block restores the values it
+    found on exit: a model's setting never outlives its forward (or its
+    train step, whose backward runs inside the same block)."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    tf32 = dft_precision != "highest"
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def device_constant(key: tuple, make, device, dtype=torch.float32) -> torch.Tensor:
+    """make()'s numpy array as a tensor on `device` in `dtype`, built and
+    uploaded once per (key, device, dtype)."""
+    key = key + (str(torch.device(device)), dtype)
+    if key not in _DEVICE_CONSTS:
+        _DEVICE_CONSTS[key] = torch.from_numpy(np.ascontiguousarray(make())).to(device, dtype)
+    return _DEVICE_CONSTS[key]
+
+
 def basis(wind_size: int, device, dtype=torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
     """(C, S) bases on `device`, uploaded once per device and dtype. They
     are the float32 values in any dtype (a float64 run multiplies by the
     same operator, exactly)."""
-    key = ("basis", wind_size, str(torch.device(device)), dtype)
-    if key not in _DEVICE_CONSTS:
-        c, s = _basis(wind_size)
-        _DEVICE_CONSTS[key] = (torch.from_numpy(c).to(device, dtype),
-                               torch.from_numpy(s).to(device, dtype))
-    return _DEVICE_CONSTS[key]
+    c, s = _basis(wind_size)
+    return (device_constant(("cos", wind_size), lambda: c, device, dtype),
+            device_constant(("sin", wind_size), lambda: s, device, dtype))
+
+
+@functools.lru_cache(maxsize=8)
+def _half_basis(n: int):
+    """Positive-angle bases over the non-redundant bins k = 0..n/2."""
+    k = np.arange(n // 2 + 1)
+    ang = 2.0 * np.pi * np.outer(k, np.arange(n)) / n
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
@@ -118,11 +149,9 @@ def mma_basis(wind_size: int, device, kernel: str, precision: str
 
 
 def _window(wind_size: int, device, dtype=torch.float32) -> torch.Tensor:
-    key = ("hann", wind_size, str(torch.device(device)), dtype)
-    if key not in _DEVICE_CONSTS:
-        win = np.asarray(hann_window(wind_size), np.float32)
-        _DEVICE_CONSTS[key] = torch.from_numpy(win).to(device, dtype)
-    return _DEVICE_CONSTS[key]
+    return device_constant(("hann", wind_size),
+                           lambda: np.asarray(hann_window(wind_size), np.float32),
+                           device, dtype)
 
 
 def frame_signal_range(x: torch.Tensor, wind_size: int, n_overlap: int,

@@ -1,4 +1,4 @@
-"""The train step (port of spatialaudiogen_tpu.train.steps).
+"""The train and eval steps (port of spatialaudiogen_tpu.train.steps).
 
 The batch dict carries the feeder outputs (feeder.py:323-335 names), as
 tensors on the model's device:
@@ -16,7 +16,8 @@ from __future__ import annotations
 import torch
 
 from spatialaudiogen_tpu_torch.dsp.geometry import ModelGeometry
-from spatialaudiogen_tpu_torch.models.metrics import training_loss
+from spatialaudiogen_tpu_torch.models.metrics import evaluation_metrics, training_loss
+from spatialaudiogen_tpu_torch.ops.dft import precision_scope
 from spatialaudiogen_tpu_torch.train.lr import clip_by_global_norm
 from spatialaudiogen_tpu_torch.train.state import TrainState
 
@@ -50,12 +51,14 @@ def train_step(state: TrainState, batch: dict, lr: float,
     model = state.model
     cfg = model.cfg
     audio_in, video, flow, target, mask = split_batch(batch, cfg.geometry)
-    pred = model(audio_in, video, flow, train=True)
-    total, metrics = training_loss(pred, target, mask, cfg.audio_rate, model=model,
-                                   weight_decay=weight_decay,
-                                   decay_exclude=model.no_decay_paths())
-    state.optimizer.zero_grad(set_to_none=True)
-    total.backward()
+    # the loss DFTs and the backward under the forward's precision
+    with precision_scope(cfg.dft_precision):
+        pred = model(audio_in, video, flow, train=True)
+        total, metrics = training_loss(pred, target, mask, cfg.audio_rate, model=model,
+                                       weight_decay=weight_decay,
+                                       decay_exclude=model.no_decay_paths())
+        state.optimizer.zero_grad(set_to_none=True)
+        total.backward()
     if clip_norm is not None:
         clip_by_global_norm([p.grad for p in model.parameters() if p.grad is not None],
                             clip_norm)
@@ -64,3 +67,20 @@ def train_step(state: TrainState, batch: dict, lr: float,
     state.optimizer.step()
     state.step += 1
     return {k: v.detach() for k, v in metrics.items()}
+
+
+@torch.no_grad()
+def eval_step(model, batch: dict):
+    """The eval step (make_eval_step's counterpart): forward with
+    train=False and the metric battery of models.metrics, both under the
+    model's dft_precision. -> (pred, mono, target, metrics, per_sample):
+    pred and target (B, snd_dur, n_out), mono (B, snd_dur, n_in), the
+    per-sample metrics (B, n_out)."""
+    cfg = model.cfg
+    g = cfg.geometry
+    audio_in, video, flow, target, mask = split_batch(batch, g)
+    with precision_scope(cfg.dft_precision):
+        pred = model(audio_in, video, flow, train=False)
+        metrics, per_sample = evaluation_metrics(pred, target, mask, cfg.audio_rate)
+    mono = audio_in[:, g.target_ss: g.target_ss + g.snd_dur]
+    return pred, mono, target, metrics, per_sample

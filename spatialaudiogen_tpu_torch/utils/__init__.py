@@ -1,1 +1,2 @@
-"""Host-side utilities: wav I/O, resampling, the native-library loader, metric logging."""
+"""Host-side utilities: wav and position-file I/O, resampling, the
+native-library loader, metric logging."""

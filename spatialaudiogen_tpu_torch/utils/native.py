@@ -1,6 +1,6 @@
-"""Loader for the repo's native C++ library (`native/`: wav and jpeg
-decoders), the port's copy of spatialaudiogen_tpu.utils.native trimmed to
-the decoder symbols the readers call.
+"""Loader for the repo's native C++ library (`native/`: the EMD solver and
+the wav and jpeg decoders), the port's copy of
+spatialaudiogen_tpu.utils.native.
 
 Builds native/ once per process on demand (make) and configures the ctypes
 signatures. Returns None when no toolchain is available: callers keep a
@@ -21,6 +21,7 @@ _lock = threading.Lock()
 _lib = None
 _failed = False
 
+_F64P = ctypes.POINTER(ctypes.c_double)
 _F32P = ctypes.POINTER(ctypes.c_float)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I32P = ctypes.POINTER(ctypes.c_int)
@@ -28,6 +29,12 @@ _I32P = ctypes.POINTER(ctypes.c_int)
 # name -> (restype, argtypes). A symbol missing from an older .so only
 # disables the paths that use it: callers check has_symbol.
 _SIGNATURES = {
+    "sag_emd_hat": (ctypes.c_double,
+                    [ctypes.c_int32, ctypes.c_int32, _F64P, _F64P, _F64P,
+                     ctypes.c_double]),
+    "sag_emd_hat_batch": (None,
+                          [ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                           _F64P, _F64P, _F64P, ctypes.c_double, _F64P]),
     "sag_decode_wav": (ctypes.c_long,
                        [ctypes.c_char_p, ctypes.c_int, ctypes.c_long, _F32P]),
     "sag_jpeg_probe": (ctypes.c_int, [ctypes.c_char_p, _I32P, _I32P, _I32P]),
@@ -82,6 +89,8 @@ def load_native():
                 fn.restype = restype
                 fn.argtypes = argtypes
                 available.append(name)
+            if "sag_emd_hat" not in available:  # every shipped .so has the EMD core
+                raise OSError(f"{_LIB_PATH} exports no sag_emd_hat")
             lib._sag_symbols = tuple(available)
             _lib = lib
         except (OSError, subprocess.SubprocessError):

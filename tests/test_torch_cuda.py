@@ -388,3 +388,37 @@ def test_default_model_deploy_card_matches_cpu(tmp_path):
     err = float(np.linalg.norm(out["cuda"][:, 1:] - out["cpu"][:, 1:])
                 / np.linalg.norm(out["cpu"][:, 1:]))
     assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+def test_eval_metrics_on_the_card_run_full_float32_after_a_tf32_forward():
+    """A dft_precision="default" model's forward on the card (TF32 allowed
+    inside it), then the device mel-LSD and envelope with the process's
+    matmul TF32 switch left on: both within 1e-5 of the same functions in
+    float64 on the CPU (a TF32 product would put them about 1e-3 off), and
+    the switches as found afterwards."""
+    _need_card()
+    from spatialaudiogen_tpu_torch.ops.eval_metrics import envelope_dist_fn, mel_lsd_batch_fn
+
+    cfg = SptAudioGenConfig(sep_num_tracks=8, dft_precision="default")
+    g = cfg.geometry
+    model = SptAudioGen(cfg, frame_hw=(64, 128)).init_weights(
+        torch.Generator().manual_seed(0)).to("cuda")
+    gen = torch.Generator().manual_seed(2)
+    audio = 0.1 * torch.randn((3, g.snd_size, 1), generator=gen)
+    video = torch.rand((3, g.vid_dur, 64, 128, 3), generator=gen) - 0.5
+    pred = 0.1 * torch.randn((4, 4800, 3), generator=gen)
+    gt = pred + 0.05 * torch.randn((4, 4800, 3), generator=gen)
+    fns = (mel_lsd_batch_fn(48000), envelope_dist_fn(4800))
+    try:
+        with torch.no_grad():
+            model(audio.cuda(), video.cuda())
+        assert not torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        for fn in fns:
+            got = fn(pred.cuda(), gt.cuda()).cpu().double()
+            want = fn(pred.double(), gt.double())
+            assert torch.backends.cuda.matmul.allow_tf32
+            assert float((got - want).abs().max()) <= 1e-5, (got - want).abs().max()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False

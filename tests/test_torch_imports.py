@@ -28,9 +28,17 @@ import spatialaudiogen_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-from spatialaudiogen_tpu_torch.cli import deploy, train
+import contextlib, io, os, tempfile
+from spatialaudiogen_tpu_torch.cli import deploy, eval, parse_eval_results, train
 deploy.parse_arguments(["model", "input"])
 train.parse_arguments(["db", "model", "--encoders", "audio", "video"])
+eval.parse_arguments(["model", "--device_metrics", "--emd", "sinkhorn"])
+with tempfile.TemporaryDirectory() as d:
+    fn = os.path.join(d, "eval-detailed.txt")
+    with open(fn, "w") as f:
+        f.write("SampleID | mse/avg stft/avg env_mse/avg emd/dir\\nv 0.5 | 0.1 2.0 0.02 0.03\\n")
+    with contextlib.redirect_stdout(io.StringIO()):
+        parse_eval_results.main([fn])
 print(json.dumps({{"modules": names,
                   "forbidden": sorted({{m.split(".")[0] for m in sys.modules}}
                                       & set({list(FORBIDDEN)!r}))}}))
@@ -55,7 +63,9 @@ def test_every_module_imports_without_jax_or_nvcc():
     assert proc.returncode == 0, proc.stderr
     out = json.loads(proc.stdout.strip().splitlines()[-1])
     for name in ("ops.masked_istft", "deploy.deploy", "train.trainer", "cli.train",
-                 "data.pipeline", "data.readers", "dsp.geometry", "utils.io_audio"):
+                 "data.pipeline", "data.readers", "dsp.geometry", "utils.io_audio",
+                 "eval.evaluator", "ops.eval_metrics", "ops.sinkhorn", "cli.eval",
+                 "cli.parse_eval_results", "ambisonics.emd", "utils.io_position"):
         assert f"spatialaudiogen_tpu_torch.{name}" in out["modules"], name
     assert out["forbidden"] == [], out["forbidden"]
 
