@@ -25,6 +25,10 @@ partial last batch is padded with zero windows that stay in the forward
 statistics, as in the JAX engine), and predictions come back as float32,
 one batch behind the dispatch.
 
+Both routes run cuDNN's deterministic algorithms (deterministic_cudnn), so
+the same window gives the same bits on every run: the streaming server
+(deploy/stream.py) promises to equal a batch-1 deploy bit for bit.
+
 Host buffers are pinned and the copies are non-blocking: decode runs in a
 background thread and the copy back of a batch's predictions is read two
 batches after it was issued, so the host and the card overlap.
@@ -32,6 +36,7 @@ batches after it was issued, so the host and the card overlap.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from collections import deque
 
@@ -95,6 +100,37 @@ def host_rgb_to_i420(rgb: np.ndarray) -> np.ndarray:
     return out
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to deterministic algorithms inside the block, the
+    switch restored after. The U-Net's transposed convolutions run cuDNN's
+    backward-data algorithms, and some of those sum with atomics: without
+    this, two forwards of the same window on the card can differ in the
+    last bit, and a stream could not equal a batch-1 deploy bit for bit."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def video_input(video_u8: torch.Tensor | None, valid: torch.Tensor,
+                dtype: torch.dtype) -> torch.Tensor | None:
+    """(B, T, H, W, 3) RGB or (B, T, H*3/2, W) I420 planes, uint8 on the
+    device -> the model's (B, T, H, W, 3) input, x/255 - 0.5, with the lanes
+    where `valid` is 0 zeroed (the deploy's pad lanes, the stream batcher's
+    idle lanes). None stays None."""
+    if video_u8 is None:
+        return None
+    if video_u8.dim() == 4:                # raw I420 planes
+        h = video_u8.shape[2] * 2 // 3
+        video = yuv420_planes_to_rgb01(video_u8, h) - 0.5
+    else:
+        video = video_u8.float() / 255.0 - 0.5
+    return video.to(dtype) * valid[:, None, None, None, None]
+
+
 class MonoToAmbix:
     """Sliding-window deploy engine (reference W2XYZ, deploy.py:41-152).
 
@@ -128,6 +164,7 @@ class MonoToAmbix:
 
     # ------------------------------------------------------------------
     @torch.no_grad()
+    @deterministic_cudnn()
     def fwd_span(self, span: torch.Tensor, rel: torch.Tensor,
                  video_u8: torch.Tensor | None) -> torch.Tensor:
         """Forward over windows gathered on the device from one audio span.
@@ -144,15 +181,22 @@ class MonoToAmbix:
         valid = (rel >= 0).to(dtype)
         windows = span.unfold(0, g.snd_size, 1)    # (L - snd_size + 1, n_in, snd_size)
         audio = windows[rel.clamp(min=0)].transpose(1, 2) * valid[:, None, None]
-        video = None
-        if video_u8 is not None:
-            if video_u8.dim() == 4:                # raw I420 planes
-                h = video_u8.shape[2] * 2 // 3
-                video = yuv420_planes_to_rgb01(video_u8, h) - 0.5
-            else:
-                video = video_u8.float() / 255.0 - 0.5
-            video = video.to(dtype) * valid[:, None, None, None, None]
-        return self.model(audio, video)
+        return self.model(audio, video_input(video_u8, valid, dtype))
+
+    @torch.no_grad()
+    @deterministic_cudnn()
+    def fwd_windows(self, audio: np.ndarray, video: np.ndarray | None,
+                    flow: np.ndarray | None) -> torch.Tensor:
+        """Forward over host-assembled float32 windows (flow configs):
+        audio (B, snd_size, n_in), video (B, T, H, W, 3) after the x/255 -
+        0.5 prep, flow (B, T, H, W, 3) decoded maps, or None. Uploaded as
+        _upload does; -> (B, snd_dur, n_out) float32 on the engine's
+        device. The batch deploy's host route and the stream's flow route
+        share it, so a batch-1 stream equals a batch-1 deploy bit for bit."""
+        dtype = next(self.model.parameters()).dtype   # float32 unless .double()d
+        audio, video, flow = (None if x is None else self._upload(x).to(dtype)
+                              for x in (audio, video, flow))
+        return self.model(audio, video, flow).float()
 
     def _reader(self, input_folder: str, start: float, duration: float | None):
         reader = SampleReader(
@@ -300,7 +344,6 @@ class MonoToAmbix:
         engine's _predict_span_host) -> (mono (N, n_in), pred (N, n_out))."""
         g = self.geometry
         reader = self._reader(input_folder, start, duration)
-        dtype = next(self.model.parameters()).dtype   # float32 unless .double()d
         monos, preds = [], []
         pending = deque()   # (n, host tensor, copy-done event): one batch behind
 
@@ -309,23 +352,20 @@ class MonoToAmbix:
                 done.synchronize()
             preds.append(host[:n].numpy().reshape(n * g.snd_dur, -1))
 
-        with torch.no_grad():
-            for n, audio, video, flow, mono in BackgroundGenerator(
-                    self._window_batches(reader), depth=2):
-                monos.append(mono)
-                audio, video, flow = (None if x is None else self._upload(x).to(dtype)
-                                      for x in (audio, video, flow))
-                out = self.model(audio, video, flow).float()
-                done = None
-                if self.device.type == "cuda":
-                    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                    host.copy_(out, non_blocking=True)
-                    done = torch.cuda.Event()
-                    done.record()
-                    out = host
-                pending.append((n, out, done))
-                if len(pending) > 1:
-                    drain(*pending.popleft())
+        for n, audio, video, flow, mono in BackgroundGenerator(
+                self._window_batches(reader), depth=2):
+            monos.append(mono)
+            out = self.fwd_windows(audio, video, flow)
+            done = None
+            if self.device.type == "cuda":
+                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+                host.copy_(out, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                out = host
+            pending.append((n, out, done))
+            if len(pending) > 1:
+                drain(*pending.popleft())
         while pending:
             drain(*pending.popleft())
         if not preds:

@@ -422,3 +422,106 @@ def test_eval_metrics_on_the_card_run_full_float32_after_a_tf32_forward():
             assert float((got - want).abs().max()) <= 1e-5, (got - want).abs().max()
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def _serving_setup(tmp_path, encoders=("audio", "video"), precision="default"):
+    """A reduced model dir (8 tracks, 64x128 frames, random weights), a
+    packed 2 s clip, and its mono (int16/32768) and 10 fps frames."""
+    import numpy as np
+
+    from spatialaudiogen_tpu_torch.config import TrainConfig
+    from spatialaudiogen_tpu_torch.models.convert import save_params
+
+    cfg = TrainConfig(model_dir=str(tmp_path / "model"), encoders=encoders,
+                      num_sep_tracks=8, frame_hw=(64, 128), pallas_precision=precision)
+    cfg.save()
+    model = SptAudioGen(cfg.model_config(), frame_hw=(64, 128)).init_weights(
+        torch.Generator().manual_seed(0))
+    save_params(cfg.model_dir, model.state_dict())
+    _packed_clip(tmp_path / "clip")
+    mono = np.load(tmp_path / "clip" / "packed" / "ambix.npy")[:, 0] / np.float32(32768)
+    frames = np.load(tmp_path / "clip" / "packed" / "video.npy")
+    return cfg.model_dir, str(tmp_path / "clip"), mono.astype(np.float32), frames
+
+
+def _serve(stream, mono, frames):
+    import numpy as np
+
+    chunks = []
+    for i in range(0, len(mono), 4800):
+        chunks += stream.push(mono[i: i + 4800], frames[i // 4800])
+    return np.concatenate(chunks + stream.flush(), 0)
+
+
+@pytest.mark.cuda
+def test_stream_is_batch1_deploy_on_the_card(tmp_path):
+    """On the card, the stream (0.1 s pushes, one frame each, then flush)
+    is bit for bit MonoToAmbix(batch_size=1, yuv_frames=False).deploy()
+    over the windows the clip holds (deploy stops where the 2 s clip ends
+    the context; flush pads it), and launches K1 once per window."""
+    _need_card()
+    import numpy as np
+
+    from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix
+    from spatialaudiogen_tpu_torch.deploy.stream import StreamingMonoToAmbix
+
+    model_dir, clip, mono, frames = _serving_setup(tmp_path)
+    ref = MonoToAmbix(model_dir, batch_size=1, yuv_frames=False).deploy(clip, 0.5, 1.5)
+    count = k1.launch_count
+    got = _serve(StreamingMonoToAmbix(model_dir), mono, frames)
+    assert k1.launch_count - count == 15
+    assert got.shape == (72000, 4) and ref.shape == (48000, 4)
+    np.testing.assert_array_equal(got[: len(ref)], ref)
+
+
+@pytest.mark.cuda
+def test_stream_card_matches_cpu(tmp_path):
+    """The stream on the card (K1 at pallas_precision="highest") against
+    the CPU, float32 fetch: relative L2 <= 1e-4, the W passthrough equal."""
+    _need_card()
+    import numpy as np
+
+    from spatialaudiogen_tpu_torch.deploy.stream import StreamingMonoToAmbix
+
+    model_dir, _, mono, frames = _serving_setup(tmp_path, precision="highest")
+    out = {dev: _serve(StreamingMonoToAmbix(model_dir, f16_fetch=False, device=dev), mono,
+                       frames) for dev in ("cpu", "cuda")}
+    np.testing.assert_array_equal(out["cuda"][:, 0], out["cpu"][:, 0])
+    err = float(np.linalg.norm(out["cuda"][:, 1:] - out["cpu"][:, 1:])
+                / np.linalg.norm(out["cpu"][:, 1:]))
+    assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+def test_stream_batcher_card_matches_cpu(tmp_path):
+    """Four sessions (staggered signals, one frame a block) through a
+    capacity-4 batcher on the card (pallas_precision="highest") and on the
+    CPU, float32 fetch: relative L2 <= 1e-4 per session; each tick that
+    runs a forward launches K1 once."""
+    _need_card()
+    import numpy as np
+
+    from spatialaudiogen_tpu_torch.deploy.stream import StreamBatcher
+
+    model_dir, _, mono, frames = _serving_setup(tmp_path, precision="highest")
+    signals = [np.roll(mono, -off) for off in (0, 4800, 20000, 7)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        b = StreamBatcher(model_dir, capacity=4, f16_fetch=False, device=dev)
+        sids = [b.add_session() for _ in signals]
+        got = {sid: [] for sid in sids}
+        for i in range(0, len(mono), 4800):
+            for sid, sig in zip(sids, signals):
+                b.push(sid, sig[i: i + 4800], frames[i // 4800])
+            count = k1.launch_count
+            res = b.tick()
+            if dev == "cuda":
+                assert k1.launch_count - count == (1 if res else 0)
+            for sid, chunks in res.items():
+                got[sid] += chunks
+        out[dev] = [np.concatenate(got[sid], 0) for sid in sids]
+    for cpu, card in zip(out["cpu"], out["cuda"]):
+        assert card.shape == cpu.shape == (48000, 4)
+        np.testing.assert_array_equal(card[:, 0], cpu[:, 0])
+        err = float(np.linalg.norm(card[:, 1:] - cpu[:, 1:]) / np.linalg.norm(cpu[:, 1:]))
+        assert err <= 1e-4, err

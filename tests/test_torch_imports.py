@@ -29,8 +29,9 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import contextlib, io, os, tempfile
-from spatialaudiogen_tpu_torch.cli import deploy, eval, parse_eval_results, train
+from spatialaudiogen_tpu_torch.cli import deploy, eval, parse_eval_results, serve, train
 deploy.parse_arguments(["model", "input"])
+serve.parse_arguments(["model", "a.wav,b.wav", "oa.wav,ob.wav", "--frames_dir", "d1,d2"])
 train.parse_arguments(["db", "model", "--encoders", "audio", "video"])
 eval.parse_arguments(["model", "--device_metrics", "--emd", "sinkhorn"])
 with tempfile.TemporaryDirectory() as d:
@@ -65,7 +66,8 @@ def test_every_module_imports_without_jax_or_nvcc():
     for name in ("ops.masked_istft", "deploy.deploy", "train.trainer", "cli.train",
                  "data.pipeline", "data.readers", "dsp.geometry", "utils.io_audio",
                  "eval.evaluator", "ops.eval_metrics", "ops.sinkhorn", "cli.eval",
-                 "cli.parse_eval_results", "ambisonics.emd", "utils.io_position"):
+                 "cli.parse_eval_results", "ambisonics.emd", "utils.io_position",
+                 "deploy.stream", "cli.serve"):
         assert f"spatialaudiogen_tpu_torch.{name}" in out["modules"], name
     assert out["forbidden"] == [], out["forbidden"]
 
@@ -96,3 +98,21 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                           capture_output=True, text=True)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_package_data_ships_every_kernel_source():
+    """An installed (non-editable) port builds K1-K3 from the sources and
+    headers that ops/masked_istft.py names: pyproject.toml's package-data
+    must match each of them."""
+    import fnmatch
+    import tomllib
+
+    from spatialaudiogen_tpu_torch.ops import masked_istft
+
+    with open(ROOT / "pyproject.toml", "rb") as f:
+        globs = tomllib.load(f)["tool"]["setuptools"]["package-data"]["spatialaudiogen_tpu_torch"]
+    files = masked_istft.SOURCES + masked_istft.HEADERS
+    assert any(p.suffix == ".cuh" for p in files)
+    for path in files:
+        rel = str(path.relative_to(PORT))
+        assert path.exists() and any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)
