@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (spatialaudiogen_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --multi_card   # phase 14's runs, a card per rank
 
 Drives the flagship model (audio + RGB encoders, unet_mask head with 32
 tracks, 224x448 frames, random weights from a seed) through the port's own
@@ -81,12 +82,37 @@ way, and fails (non-zero exit) on the first phase that goes wrong:
      capacity 32 and 128, f32 and bf16, over 2 s (per-tick latency,
      aggregate realtime factor, K1 once per tick), then 3 s at capacity
      128 f32 paced at wall-clock rate (kept_up: p90 tick < 100 ms);
-     cli.serve single and 2-session batched over wavs and the packed clip.
+     cli.serve single and 2-session batched over wavs and the packed clip;
+ 14. multi-device train: cli.train over phase 7's dataset in the
+     --coordinator form, two ranks sharing the card (gloo), flagship at
+     global batch 32, kernels on 3xTF32: data parallel (n_data 2, 2 steps,
+     one clip per rank) and tensor parallel (n_model 2, 2 steps, audio-fc
+     split), each held to one process on the same global batches (losses
+     within 1e-4 relative on every step: MD_LOSS_RTOL says why), K1 and
+     K2 launched once per step on every rank, each rank's step ms and the
+     all-reduce's share of rank 0's profiled last step; the spread of one
+     process against itself over 3 steps with the halves of each batch
+     swapped; then cli.train --tb_histograms 2 --tb_activations --pretrained_resnet (a resnet18.npy it writes) for 3
+     steps: conv1 the npy's slice at step 0, the params, grads and acts
+     histograms decode, K1/K2 launched once per step and once per observe
+     step.
+
+Phase 10 also times the batch-128 train steps with cuDNN's deterministic
+algorithms, and phase 12 checks that five eval steps of one batch give
+one output (the eval step runs them).
+
+With --multi_card (two cards or more) it builds the kernels and runs only
+phase 14's parallel runs, each rank on a card of its own, so that the
+mesh's groups run on NCCL: data parallel and tensor parallel on two
+cards, and n_data 2 x n_model 2 on four, held to one process as phase 14
+holds its runs; the last line is the same JSON object, with the count of
+cards.
 
 The kernel counts are set to 0 just before each main-path run (deploy,
 the NHWC forward and train step, the f32, bf16 and default-model
 trainings, the default model's deploy, each cli.eval run, the f32 serve
-stream, the serve batcher's ticks) and read just after it. Everything
+stream, the serve batcher's ticks, each rank's cli.train and the
+TensorBoard cli.train of phase 14) and read just after it. Everything
 else runs the model's default pallas_precision, "default" (K1, K2 and K3
 on bf16). The second-to-last line is a JSON object describing the
 kernels (top-level times the bf16 route's, the 3xTF32 route's under
@@ -96,7 +122,9 @@ those of the NHWC train step, with the NHWC forward's count under
 "default_model_launches", K1's in the exact-mode cli.eval under
 "eval_launches", in the f32 serve stream under "serve_launches", in the
 capacity-128 f32 batcher's 20 ticks under "serve_batcher_launches", and
-its batch-1 times under "serve_batch1"; "shapes" names every shape a
+its batch-1 times under "serve_batch1"; K1's and K2's per rank in phase
+14's data and tensor parallel runs, and in its TensorBoard run, under
+"multi_device_launches"; "shapes" names every shape a
 kernel was held to its plain version at, with its bf16-route times); the
 last is
 {"ok": true, "device": {...}}. Without a CUDA card the
@@ -1078,6 +1106,7 @@ def train_card_vs_cpu(card: str, **fields) -> None:
 
 def train_numbers(card: str) -> None:
     from spatialaudiogen_tpu_torch.config import TrainConfig
+    from spatialaudiogen_tpu_torch.ops.dft import deterministic_cudnn
     from spatialaudiogen_tpu_torch.train.state import create_train_state
     from spatialaudiogen_tpu_torch.train.steps import train_step
 
@@ -1097,6 +1126,13 @@ def train_numbers(card: str) -> None:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         log(f"train step batch {batch} {dtype}: {ms:.2f} ms -> {batch / (ms / 1e3):.1f} "
             f"samples/s, peak memory {peak_gb:.1f} GB [{card}]")
+        if batch == TRAIN_BATCHES[-1]:
+            # what cuDNN's deterministic algorithms would cost the train
+            # step (the eval, deploy and serving forwards run them)
+            with deterministic_cudnn():
+                det_ms = time_ms(step, warmup=2, iters=5)
+            log(f"train step batch {batch} {dtype} with deterministic cuDNN: {det_ms:.2f} ms "
+                f"against {ms:.2f} ms ({100 * (det_ms / ms - 1):+.1f}%) [{card}]")
         profile_step(step, card, f"train step batch {batch} {dtype}")
         del state, data
         torch.cuda.empty_cache()
@@ -1347,6 +1383,12 @@ def eval_phase(card: str) -> dict:
 
     step_ms = time_ms(device_step, warmup=2, iters=5)
     fwd_ms = time_ms(lambda: eval_step(ev.model, data), warmup=2, iters=5)
+    # the eval step runs cuDNN's deterministic algorithms: one answer
+    distinct = len({eval_step(ev.model, data)[0].cpu().numpy().tobytes() for _ in range(5)})
+    log(f"eval step batch {EVAL_BATCH}: {distinct} distinct output(s) of 5 device steps of "
+        f"one batch")
+    if distinct != 1:
+        raise AssertionError(f"eval step: {distinct} distinct outputs of one batch")
     emd_ms = time_ms(lambda: ev._emd_device_fn(pred, mono, target, layout), warmup=1, iters=5)
     spectral_ms = time_ms(lambda: ev._spectral_device_fn(pred, target), warmup=1, iters=5)
     log(f"eval device step batch {EVAL_BATCH} (forward + STFT battery + mel-LSD, envelope, "
@@ -1743,18 +1785,368 @@ def serve_phase(card: str) -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# 14. multi-device train: data and tensor parallel cli.train across ranks
+# ---------------------------------------------------------------------------
+
+MD_BATCH = 32
+# (what, n_data, n_model, steps) of phase 14: two ranks on this card
+MD_RUNS = (("data parallel", 2, 1, 2), ("tensor parallel", 1, 2, 2))
+# --multi_card: a card per rank (NCCL), and the 2x2 grid where there are
+# four cards
+MD_CARD_RUNS = MD_RUNS + (("data and tensor parallel", 2, 2, 2),)
+MD_TB_STEPS = 3
+# Relative loss limit against one process, every step. The ranks round
+# otherwise than one process (a rank's 16 rows, the BN and loss sums over
+# two ranks), and Adam's first updates move each weight by about lr
+# whatever its gradient's size, so a weight whose gradient is rounding
+# noise moves either way; the loss carries that from the second update
+# on. Two steps stay inside 1e-4; a third does not, even for one process
+# against itself with the halves of each batch swapped: phase 14 measures
+# that spread over MD_SPREAD_STEPS and prints it.
+MD_LOSS_RTOL = 1e-4
+MD_SPREAD_STEPS = 3
+
+# One rank of phase 14: cli.train in this process with the kernels on
+# 3xTF32 (pallas_precision "highest", so that the ranks can be held to one
+# process at 1e-4), K1/K2/K3 counts set to 0 just before and read just
+# after, each train step timed (synchronised host clock), and rank 0's last
+# step profiled: the share of its wall time inside torch.distributed's
+# all-reduce (host clock around each call, synchronised) and, from
+# torch.profiler, in its allreduce ops. Prints one RANK_RESULT line, with
+# the backend the mesh's groups took.
+RANK_MAIN = r"""
+import dataclasses, json, sys, time
+import torch
+import torch.distributed as dist
+from spatialaudiogen_tpu_torch.cli import train as cli_train
+from spatialaudiogen_tpu_torch.config import TrainConfig
+from spatialaudiogen_tpu_torch.ops import masked_istft as k
+from spatialaudiogen_tpu_torch.parallel import mesh
+from spatialaudiogen_tpu_torch.train import trainer
+
+backends = []
+collective_backend = mesh.collective_backend
+mesh.collective_backend = lambda device: backends.append(collective_backend(device)) or backends[-1]
+argv = sys.argv[1:]
+rank = int(argv[argv.index("--process_id") + 1])
+n_steps = int(argv[argv.index("--n_iters") + 1])
+model_config = TrainConfig.model_config
+TrainConfig.model_config = lambda self: dataclasses.replace(model_config(self),
+                                                            pallas_precision="highest")
+step_ms, ar_ms, prof = [], [0.0], {}
+all_reduce = dist.all_reduce
+
+def timed_all_reduce(*a, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = all_reduce(*a, **kw)
+    torch.cuda.synchronize()
+    ar_ms[0] += (time.perf_counter() - t0) * 1e3
+    return out
+
+train_step = trainer.train_step
+
+def step(*a, **kw):
+    last = rank == 0 and len(step_ms) == n_steps - 1
+    if last:
+        from torch.profiler import ProfilerActivity, profile
+        dist.all_reduce = timed_all_reduce
+        p = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        p.__enter__()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train_step(*a, **kw)
+    torch.cuda.synchronize()
+    step_ms.append((time.perf_counter() - t0) * 1e3)
+    if last:
+        p.__exit__(None, None, None)
+        dist.all_reduce = all_reduce
+        ops = [e for e in p.key_averages() if e.key == "c10d::allreduce_"]
+        prof.update(ms=step_ms[-1], timed_all_reduce_ms=ar_ms[0],
+                    profiler_allreduce_ms=ops[0].cpu_time_total / 1e3 if ops else None,
+                    profiler_allreduce_calls=ops[0].count if ops else None)
+    return out
+
+trainer.train_step = step
+k.launch_count = k.bwd_launch_count = k.nhwc_launch_count = 0
+cli_train.main(argv)
+print("RANK_RESULT " + json.dumps({"rank": rank, "launches": [
+    k.launch_count, k.bwd_launch_count, k.nhwc_launch_count], "step_ms": step_ms,
+    "profile": prof, "backends": backends, "device": str(torch.cuda.current_device())}),
+    flush=True)
+"""
+
+
+def md_flags(db: Path, model_dir: Path, steps: int, batch: int) -> list:
+    return [str(db), str(model_dir), "--encoders", "audio", "video", "--frame_hw",
+            *map(str, FRAME_HW), "--batch_size", str(batch), "--n_iters", str(steps),
+            "--log_every", "1", "--ckpt_every", "0", "--n_workers", "1", "--seed", str(SEED),
+            "--device", DEVICE]
+
+
+def run_ranks(db: Path, model_dir: Path, steps: int, n_data: int, n_model: int) -> list:
+    """cli.train in the --coordinator form, one process per rank (rank r on
+    card r % cards: gloo when ranks share a card, NCCL when each has its
+    own). -> each rank's RANK_RESULT."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    n = n_data * n_model
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK_MAIN, *md_flags(db, model_dir, steps, MD_BATCH),
+         "--n_data", str(n_data), "--n_model", str(n_model), "--coordinator",
+         f"localhost:{port}", "--n_processes", str(n), "--process_id", str(r)],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [line for line in out.splitlines() if line.startswith("RANK_RESULT ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"rank {r} of {n} exited {p.returncode}:\n{out[-3000:]}")
+        results.append(json.loads(lines[-1][len("RANK_RESULT "):]))
+    return results
+
+
+def one_process_losses(db: Path, steps: int, n_shards: int,
+                       swap_halves: bool = False) -> tuple[list, list]:
+    """The flagship's steps in this process over the global batches that
+    n_shards data ranks form ([rank 0's rows; rank 1's rows]: one feeder
+    per shard, the trainer's shards and seed, one worker each; with
+    swap_halves the two halves of each batch change places, the same
+    loss in exact arithmetic), kernels on 3xTF32. -> (losses, step ms
+    after the first)."""
+    from spatialaudiogen_tpu_torch.config import TrainConfig
+    from spatialaudiogen_tpu_torch.data.pipeline import Feeder
+    from spatialaudiogen_tpu_torch.data.readers import img_prep_u8
+    from spatialaudiogen_tpu_torch.train.state import create_train_state
+    from spatialaudiogen_tpu_torch.train.steps import train_step
+
+    cfg = TrainConfig(encoders=("audio", "video"), frame_hw=FRAME_HW, seed=SEED,
+                      batch_size=MD_BATCH, pallas_precision="highest")
+    feeders = [Feeder(str(db), ambi_order=1, audio_rate=cfg.audio_rate,
+                      video_rate=cfg.video_rate, context=cfg.context,
+                      duration=cfg.sample_dur, return_video=True, img_prep=img_prep_u8,
+                      batch_size=MD_BATCH // n_shards, n_workers=1, for_eval=False,
+                      seed=cfg.seed, shard_id=i, num_shards=n_shards).start()
+               for i in range(n_shards)]
+    try:
+        iters = [f.batches() for f in feeders]
+        batches = []
+        for _ in range(steps):
+            parts = [next(it) for it in iters]
+            batch = {key: np.concatenate([p[key] for p in parts]) for key in parts[0]
+                     if key != "id"}
+            if swap_halves:
+                batch = {key: np.roll(v, MD_BATCH // 2, axis=0) for key, v in batch.items()}
+            batches.append({key: torch.from_numpy(v).to(DEVICE) for key, v in batch.items()})
+    finally:
+        for f in feeders:
+            f.stop()
+    state = create_train_state(cfg, DEVICE)
+    losses, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(train_step(state, b, cfg.lr)["total_loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    del state
+    torch.cuda.empty_cache()
+    return losses, ms[1:]
+
+
+def write_resnet_npy(path: Path) -> np.ndarray:
+    """A reference-style resnet18.npy (TF variable names) of random values
+    for the visual encoder, conv1 four input channels wide; -> conv1's
+    OIHW slice the encoder must start from."""
+    from spatialaudiogen_tpu_torch.config import SptAudioGenConfig
+    from spatialaudiogen_tpu_torch.models.convert import nest, to_flax, to_tf_var_dict
+    from spatialaudiogen_tpu_torch.models.sptaudiogen import SptAudioGen
+
+    model = SptAudioGen(SptAudioGenConfig(), frame_hw=FRAME_HW)
+    visual = {k.replace("/video_encoder/", "/", 1): v for k, v in
+              to_flax(model.state_dict()).items() if "/video_encoder/" in k}
+    rng = np.random.RandomState(SEED + 14)
+    blob = {name: (0.05 * rng.randn(*v.shape)).astype(np.float32)
+            for name, v in to_tf_var_dict(nest(visual)).items()}
+    for name in blob:
+        if name.endswith(("moving_variance", "gamma")):
+            blob[name] = 1.0 + np.abs(blob[name])
+    w = blob["conv1/weights"]
+    blob["conv1/weights"] = np.concatenate([w, w[:, :, :1]], axis=2)
+    np.save(path, blob, allow_pickle=True)
+    return np.ascontiguousarray(w.transpose(3, 2, 0, 1))
+
+
+def md_parallel_runs(card: str, runs) -> dict:
+    """cli.train over phase 7's two-clip dataset (one clip per data rank)
+    in the --coordinator form, flagship at global batch 32, kernels on
+    3xTF32, for each (what, n_data, n_model, steps) of `runs`: held to one
+    process on the same global batches (losses within MD_LOSS_RTOL), K1
+    and K2 launched once per step on every rank, the mesh's groups on the
+    backend the ranks' cards call for (gloo when they share one, NCCL when
+    each has its own), each rank's step ms and the all-reduce's share of a
+    profiled rank-0 step. -> {what: each rank's launches}."""
+    db = SCRATCH / "train_db"
+    out = {}
+    for what, n_data, n_model, steps in runs:
+        model_dir = SCRATCH / f"md_{n_data}x{n_model}"
+        n_ranks, cards = n_data * n_model, torch.cuda.device_count()
+        backend = "nccl" if cards >= n_ranks else "gloo"
+        t0 = time.perf_counter()
+        ranks = run_ranks(db, model_dir, steps, n_data, n_model)
+        wall = time.perf_counter() - t0
+        recs = [json.loads(line) for line in (model_dir / "metrics.jsonl").read_text()
+                .splitlines()]
+        losses = [r["total_loss"] for r in recs]
+        want, one_ms = one_process_losses(db, steps, n_data)
+        errs = [abs(a - b) / abs(b) for a, b in zip(losses, want)]
+        log(f"multi-device {what} (n_data {n_data}, n_model {n_model}, {n_ranks} ranks on "
+            f"{min(cards, n_ranks)} card(s), {backend}, global batch {MD_BATCH}, {steps} "
+            f"steps in {wall:.1f} s wall): losses {[round(x, 4) for x in losses]}, one "
+            f"process {[round(x, 4) for x in want]}, relative differences "
+            f"{[f'{e:.2e}' for e in errs]} (limit {MD_LOSS_RTOL})")
+        for r in ranks:
+            ms = r["step_ms"][1:]
+            log(f"  rank {r['rank']} (cuda:{r['device']}, groups {r['backends']}): K1/K2/K3 "
+                f"launches {r['launches']}, step ms after the first "
+                f"{[round(x, 2) for x in ms]} [{card}]")
+        log(f"  one process, same batches: step ms after the first "
+            f"{[round(x, 2) for x in one_ms]} [{card}]")
+        prof = ranks[0]["profile"]
+        ar_ms = prof["timed_all_reduce_ms"]
+        log(f"  rank 0's profiled step: {prof['ms']:.2f} ms, of which "
+            f"{ar_ms:.2f} ms ({100 * ar_ms / prof['ms']:.1f}%) "
+            f"inside torch.distributed.all_reduce (synchronised host clock); torch.profiler: "
+            f"{prof['profiler_allreduce_calls']} c10d::allreduce_ calls, "
+            f"{prof['profiler_allreduce_ms']} ms on the host [{card}]")
+        if len(losses) != steps or not np.isfinite(losses).all() or max(errs) > MD_LOSS_RTOL:
+            raise AssertionError(f"{what}: losses {losses} against one process {want}")
+        if any(r["launches"] != [steps, steps, 0] for r in ranks):
+            raise AssertionError(f"{what}: K1/K2/K3 launches per rank "
+                                 f"{[r['launches'] for r in ranks]} in {steps} steps")
+        if any(r["backends"] != [backend] for r in ranks):
+            raise AssertionError(f"{what}: the mesh's groups took "
+                                 f"{[r['backends'] for r in ranks]}, not {backend}")
+        out[what] = [r["launches"][:2] for r in ranks]
+    return out
+
+
+def multi_device_phase(card: str) -> dict:
+    """md_parallel_runs of MD_RUNS: data parallel (n_data 2) and tensor
+    parallel (n_model 2, audio-fc split), 2 steps each, two ranks sharing
+    this card; the spread of one process against itself (MD_LOSS_RTOL).
+    Then cli.train in this process with --tb_histograms 2
+    --tb_activations --pretrained_resnet (an npy it writes) for 3 steps:
+    conv1 the npy's slice before step 0, the params, grads and acts
+    histograms decode, and the observe steps' K1/K2 launches on top of the
+    train steps'."""
+    from spatialaudiogen_tpu_torch.cli import train as cli_train
+    from spatialaudiogen_tpu_torch.ops import masked_istft as k
+    from spatialaudiogen_tpu_torch.train.trainer import Trainer
+    from spatialaudiogen_tpu_torch.utils.tensorboard import decode_histograms
+
+    out = md_parallel_runs(card, MD_RUNS)
+    db = SCRATCH / "train_db"
+    want, _ = one_process_losses(db, MD_SPREAD_STEPS, 2)
+    swapped, _ = one_process_losses(db, MD_SPREAD_STEPS, 2, swap_halves=True)
+    log(f"one process against itself, the halves of each global batch swapped (the same "
+        f"loss in exact arithmetic): relative differences "
+        f"{[f'{abs(a - b) / abs(b):.2e}' for a, b in zip(swapped, want)]} over "
+        f"{MD_SPREAD_STEPS} steps [{card}]")
+    npy = SCRATCH / "resnet18.npy"
+    conv1 = write_resnet_npy(npy)
+    seen = {}
+    train = Trainer.train
+
+    def check_start(self):
+        weight = self.state.model.video_encoder.conv1.conv.weight
+        seen["conv1"] = weight.detach().cpu().numpy().copy()
+        return train(self)
+
+    model_dir = SCRATCH / "md_tb"
+    argv = md_flags(db, model_dir, MD_TB_STEPS, MD_BATCH) + [
+        "--tb_histograms", "2", "--tb_activations", "--pretrained_resnet", str(npy)]
+    Trainer.train = check_start
+    try:
+        k.launch_count = k.bwd_launch_count = k.nhwc_launch_count = 0
+        cli_train.main(argv)
+        launches = (k.launch_count, k.bwd_launch_count, k.nhwc_launch_count)
+    finally:
+        Trainer.train = train
+    (events,) = model_dir.glob("events.out.tfevents.*")
+    tags = {t for t, *_ in decode_histograms(str(events))}
+    kinds = {t.split("/")[0] for t in tags}
+    observed = len(range(0, MD_TB_STEPS, 2))
+    log(f"cli.train --tb_histograms 2 --tb_activations --pretrained_resnet: {len(tags)} "
+        f"histogram tags ({', '.join(sorted(kinds))}), K1/K2/K3 launches "
+        f"{launches[0]}/{launches[1]}/{launches[2]} in {MD_TB_STEPS} steps and {observed} "
+        f"observe steps; conv1 at step 0 off the npy's slice by "
+        f"{float(np.abs(seen['conv1'] - conv1).max()):.3e}")
+    if kinds != {"params", "grads", "acts"} or not {
+            "params/video_encoder/conv1/conv/kernel", "grads/bottleneck/audio-fc/dense/kernel",
+            "acts/separation"} <= tags:
+        raise AssertionError(f"histogram tags: {sorted(tags)[:10]}")
+    if launches != (MD_TB_STEPS + observed, MD_TB_STEPS + observed, 0):
+        raise AssertionError(f"K1/K2/K3 launched {launches} times with the observe steps")
+    if not np.array_equal(seen["conv1"], conv1):
+        raise AssertionError("conv1 did not start from the npy's slice")
+    out["tb"] = list(launches[:2])
+    return out
+
+
+def phase(fn, *args, **kwargs):
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    log(f"[{fn.__name__}: {time.perf_counter() - t0:.1f} s]")
+    return out
+
+
+def multi_card_main() -> int:
+    """--multi_card: phase 14's parallel runs with a card per rank, so the
+    mesh's groups run on NCCL (MD_CARD_RUNS: data parallel and tensor
+    parallel on two cards, the 2x2 grid on four), each held to one process
+    as phase 14 holds its runs. Needs at least two cards."""
+    t_start = time.perf_counter()
+    card = preconditions()
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise SystemExit(f"chip_smoke --multi_card: needs two cards or more, found {cards}")
+    shutil.rmtree(SCRATCH, ignore_errors=True)
+    SCRATCH.mkdir()
+    try:
+        phase(build_kernels)
+        phase(write_train_db, SCRATCH / "train_db")
+        multi = phase(md_parallel_runs, card,
+                      [run for run in MD_CARD_RUNS if run[1] * run[2] <= cards])
+    finally:
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+    log(f"chip_smoke --multi_card: {time.perf_counter() - t_start:.1f} s in all, the build "
+        f"included")
+    log(f"card: {card}")
+    log(json.dumps({"multi_device_launches": multi}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": cards}}))
+    return 0
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = preconditions()
     shutil.rmtree(SCRATCH, ignore_errors=True)
     SCRATCH.mkdir()
-
-    def phase(fn, *args, **kwargs):
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        log(f"[{fn.__name__}: {time.perf_counter() - t0:.1f} s]")
-        return out
-
     try:
         phase(build_kernels)
         k1_times = phase(kernel_phase, card)
@@ -1771,6 +2163,7 @@ def main() -> int:
         phase(train_numbers, card)
         evaluation = phase(eval_phase, card)
         serving = phase(serve_phase, card)
+        multi = phase(multi_device_phase, card)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     # The top-level numbers are the "default" (bf16) route's, the one the
@@ -1786,10 +2179,14 @@ def main() -> int:
               "eval_launches": evaluation["launches"],
               "serve_launches": serving["serve_launches"],
               "serve_batcher_launches": serving["batcher_launches"],
-              "serve_batch1": serving["batch1"]}, ()),
+              "serve_batch1": serving["batch1"],
+              "multi_device_launches": {what: [r[0] for r in ranks] if what != "tb"
+                                        else ranks[0] for what, ranks in multi.items()}}, ()),
             ("masked_istft_bwd", "masked_istft_bwd.cu", K2_REPLACES, k2_times,
              {"launches": train["bwd_launches"],
-              "default_model_launches": default["bwd_launches"]}, ()),
+              "default_model_launches": default["bwd_launches"],
+              "multi_device_launches": {what: [r[1] for r in ranks] if what != "tb"
+                                        else ranks[1] for what, ranks in multi.items()}}, ()),
             ("masked_istft_nhwc", "masked_istft_nhwc.cu", K3_REPLACES, k3_times, k3,
              ("k1_ms",))):
         main, highest = times["flagship f32", "default"], times["flagship f32", "highest"]
@@ -1821,4 +2218,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(multi_card_main() if sys.argv[1:] == ["--multi_card"] else main())

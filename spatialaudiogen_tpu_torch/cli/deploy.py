@@ -59,7 +59,7 @@ def refuse_unported(args) -> None:
             raise NotImplementedError(f"{flag} (video output) {later} 15d (pass "
                                       f"--save_ambix for the ambisonics wav)")
     if args.n_data > 1:
-        raise NotImplementedError(f"--n_data > 1 (multi-device deploy) {later} 14")
+        raise NotImplementedError(f"--n_data > 1 (multi-device deploy) {later} 14b")
 
 
 def main(argv=None):

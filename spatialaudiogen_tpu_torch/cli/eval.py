@@ -66,7 +66,7 @@ def main(argv=None):
     args = parse_arguments(argv)
     if args.n_data is not None and args.n_data > 1:
         raise NotImplementedError("--n_data > 1 (multi-device eval) is not ported yet; "
-                                  "see ROADMAP.md, 'Modules to port', item 14")
+                                  "see ROADMAP.md, 'Modules to port', item 14b")
     eval_fn = os.path.join(args.model_dir, "eval-detailed.txt")
     if not os.path.exists(args.model_dir):
         raise FileNotFoundError(f"Model dir does not exist: {args.model_dir}")

@@ -69,7 +69,7 @@ def refuse_unported(args) -> None:
     """NotImplementedError for the flags whose paths are not ported yet."""
     if args.n_data is not None and args.n_data > 1:
         raise NotImplementedError("--n_data > 1 (multi-device serving) is not ported "
-                                  "yet; see ROADMAP.md, 'Modules to port', item 14")
+                                  "yet; see ROADMAP.md, 'Modules to port', item 14b")
 
 
 def _frame_reader(path: str):

@@ -5,16 +5,31 @@
         [--encoders audio flow video] --separation unet_mask --batch_size 32 ...
 
 The default encoders (audio, flow and video) train; flow needs the dataset's
-flow frames (flow/ jpgs or the packed flow.npy + flow_lims.npy). Flags that
-select paths not ported yet raise NotImplementedError naming their
-ROADMAP.md item: --n_data/--n_model > 1,
---coordinator/--n_processes/--process_id, --tb_histograms and
---pretrained_resnet.
+flow frames (flow/ jpgs or the packed flow.npy + flow_lims.npy).
+
+Multi-device training, data parallel over n_data ranks and tensor parallel
+over n_model (n_data x n_model ranks, parallel.mesh), runs in two forms:
+
+    # one command starts every rank on this host (one card each on CUDA,
+    # CPU processes under --device cpu), over a free localhost port
+    python -m spatialaudiogen_tpu_torch.cli.train DB MODEL --n_data 2 [--n_model 1]
+
+    # one command per rank, on any hosts that reach the coordinator
+    python -m spatialaudiogen_tpu_torch.cli.train DB MODEL --n_data 2 \
+        --coordinator HOST:PORT --n_processes 2 --process_id {0,1}
+
+A rank that fails fails the command; a lost rank fails the others at their
+next collective, after at most parallel.distributed.DEFAULT_TIMEOUT_S.
+--tb_histograms N writes parameter and gradient histograms every N steps
+(with --tb_activations also the model's tapped activations), and
+--pretrained_resnet initialises the visual encoders from a resnet18.npy.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import socket
 import sys
 
 from spatialaudiogen_tpu_torch.config import ENCODERS, FREQ_MASK, NO_SEPARATION
@@ -52,29 +67,29 @@ def parse_arguments(argv=None):
     parser.add_argument("--ckpt_every", type=int, default=5000)
     parser.add_argument("--tb_histograms", type=int, default=0,
                         help="Parameter and gradient TensorBoard histograms "
-                             "every N steps (not ported yet: must stay 0).")
+                             "every N steps (0: none).")
     parser.add_argument("--tb_activations", action="store_true",
                         help="With --tb_histograms: also histogram the "
-                             "model's tapped activations (not ported yet).")
+                             "model's tapped activations.")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--frame_hw", nargs=2, type=int, default=[224, 448])
     parser.add_argument("--n_data", type=int, default=None,
-                        help="data-parallel size (one device only so far)")
+                        help="data-parallel size (default: the processes over "
+                             "--n_model)")
     parser.add_argument("--n_model", type=int, default=1,
-                        help="tensor-parallel size (one device only so far)")
+                        help="tensor-parallel size")
     parser.add_argument("--coordinator", default=None,
-                        help="coordinator address for multi-process runs "
-                             "(not ported yet)")
+                        help="HOST:PORT of rank 0's store, for multi-process runs")
     parser.add_argument("--n_processes", type=int, default=None,
-                        help="total number of trainer processes (not ported yet)")
+                        help="total number of trainer processes")
     parser.add_argument("--process_id", type=int, default=None,
-                        help="this process's rank (not ported yet)")
+                        help="this process's rank")
     parser.add_argument("--bf16", action="store_true",
                         help="run the conv/FC stacks in bfloat16 with float32 "
                              "master weights (compute_dtype=bfloat16)")
     parser.add_argument("--pretrained_resnet", default=None,
                         help="resnet18.npy applied to each visual encoder at "
-                             "train start (not ported yet)")
+                             "train start (fresh runs only)")
     parser.add_argument("--device", default="cuda",
                         help="torch device to train on (default cuda).")
     args = parser.parse_args(argv)
@@ -83,24 +98,67 @@ def parse_arguments(argv=None):
     return args
 
 
-def refuse_unported(args) -> None:
-    """NotImplementedError for the flags whose paths are not ported yet."""
-    later = "is not ported yet; see ROADMAP.md, 'Modules to port', item"
-    if args.n_model > 1 or (args.n_data or 1) > 1:
-        raise NotImplementedError(f"--n_data/--n_model > 1 (multi-device) {later} 14")
-    if any(v is not None for v in (args.coordinator, args.n_processes, args.process_id)):
-        raise NotImplementedError(f"--coordinator/--n_processes/--process_id "
-                                  f"(multi-process) {later} 14")
-    if args.tb_histograms or args.tb_activations:
-        raise NotImplementedError(f"--tb_histograms/--tb_activations {later} 11")
-    if args.pretrained_resnet:
-        raise NotImplementedError(f"--pretrained_resnet {later} 11")
+def check_flags(args) -> int:
+    """ValueError (or FileNotFoundError) for flags that cannot run
+    together, before anything is written; -> the number of ranks."""
+    n_ranks = (args.n_data or 1) * args.n_model
+    multi = [v is not None for v in (args.coordinator, args.n_processes, args.process_id)]
+    if any(multi) and not all(multi):
+        raise ValueError("multi-process runs take --coordinator, --n_processes and "
+                         "--process_id together")
+    if args.n_processes is not None:
+        if args.n_data is None and args.n_processes % args.n_model == 0:
+            n_ranks = args.n_processes
+        if n_ranks != args.n_processes:
+            raise ValueError(f"multi-device: --n_data x --n_model = {n_ranks} must equal "
+                             f"--n_processes {args.n_processes}")
+        if not 0 <= args.process_id < args.n_processes:
+            raise ValueError(f"multi-process: --process_id {args.process_id} is not a "
+                             f"rank of {args.n_processes}")
+    if min(args.n_model, args.n_data or 1) < 1:
+        raise ValueError("multi-device: --n_data and --n_model must be positive")
+    if args.tb_histograms < 0:
+        raise ValueError(f"--tb_histograms {args.tb_histograms}: a step count, 0 for none")
+    if args.pretrained_resnet and not os.path.isfile(args.pretrained_resnet):
+        raise FileNotFoundError(f"--pretrained_resnet {args.pretrained_resnet}: no such file")
+    return n_ranks
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, argv: list, port: int, n_ranks: int) -> None:
+    """One rank of the spawn form: the CLI with the multi-process flags."""
+    main(list(argv) + ["--coordinator", f"localhost:{port}", "--n_processes", str(n_ranks),
+                       "--process_id", str(rank)])
+
+
+def spawn_local(argv: list, n_ranks: int) -> None:
+    """Every rank of the run on this host, one process each (started with
+    spawn, so a CUDA rank initialises its own card); raises when a rank
+    exits with an error (torch.multiprocessing terminates the others)."""
+    import torch.multiprocessing as mp
+
+    # by its module's name, also when this file runs as __main__ (python -m)
+    from spatialaudiogen_tpu_torch.cli.train import _rank_main
+    mp.start_processes(_rank_main, args=(argv, _free_port(), n_ranks), nprocs=n_ranks,
+                       join=True, start_method="spawn")
 
 
 def main(argv=None):
+    """Train; -> (train state, steps) of this process. The spawn form
+    (--n_data or --n_model > 1 with no --n_processes) returns None once
+    every rank has finished."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_arguments(argv)
-    refuse_unported(args)
+    n_ranks = check_flags(args)
+    if args.n_processes is None and n_ranks > 1:
+        return spawn_local(argv, n_ranks)
     from spatialaudiogen_tpu_torch.config import TrainConfig
+    from spatialaudiogen_tpu_torch.parallel.distributed import initialize, shutdown
     from spatialaudiogen_tpu_torch.train.trainer import Trainer
 
     # min_t rule from train.py:83-84: the effective video rate covers the
@@ -126,13 +184,17 @@ def main(argv=None):
         compute_dtype="bfloat16" if args.bf16 else "float32",
         pretrained_resnet=args.pretrained_resnet)
 
-    print("=" * 30 + " ARGUMENTS " + "=" * 30)
-    for k, v in vars(args).items():
-        print(f"{k}: {v}")
-    sys.stdout.flush()
-
-    trainer = Trainer(cfg, device=args.device)
-    return trainer.train()
+    device = initialize(args.coordinator, args.n_processes, args.process_id, args.device)
+    try:
+        if not args.process_id:
+            print("=" * 30 + " ARGUMENTS " + "=" * 30)
+            for k, v in vars(args).items():
+                print(f"{k}: {v}")
+            sys.stdout.flush()
+        trainer = Trainer(cfg, device=str(device))
+        return trainer.train()
+    finally:
+        shutdown()
 
 
 if __name__ == "__main__":

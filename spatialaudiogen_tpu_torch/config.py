@@ -93,9 +93,7 @@ class SptAudioGenConfig:
 @dataclasses.dataclass
 class TrainConfig:
     """The fields of spatialaudiogen_tpu.config.TrainConfig, with its
-    defaults. Some fields select paths that are not ported yet
-    (multi-device, TensorBoard histograms, pretrained ResNet weights);
-    cli.train refuses those values."""
+    defaults."""
 
     db_dir: str = ""
     model_dir: str = ""

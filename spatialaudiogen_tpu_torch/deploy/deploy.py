@@ -36,7 +36,6 @@ batches after it was issued, so the host and the card overlap.
 
 from __future__ import annotations
 
-import contextlib
 import os
 from collections import deque
 
@@ -49,6 +48,7 @@ from spatialaudiogen_tpu_torch.data.packed import PackedVideoReader, is_packed
 from spatialaudiogen_tpu_torch.data.readers import SampleReader, VideoFrameReader, img_prep_default
 from spatialaudiogen_tpu_torch.models.convert import load_params
 from spatialaudiogen_tpu_torch.models.sptaudiogen import SptAudioGen
+from spatialaudiogen_tpu_torch.ops.dft import deterministic_cudnn
 from spatialaudiogen_tpu_torch.utils.io_audio import pcm16_exact
 
 DEPLOY_DURATION = 0.1  # deploy.py:49
@@ -98,21 +98,6 @@ def host_rgb_to_i420(rgb: np.ndarray) -> np.ndarray:
         sub = plane.reshape(t, h // 2, 2, w // 2, 2).mean(axis=(2, 4))
         out[:, dst0: dst0 + h // 4] = np.clip(sub + 0.5, 0, 255).reshape(t, h // 4, w)
     return out
-
-
-@contextlib.contextmanager
-def deterministic_cudnn():
-    """cuDNN restricted to deterministic algorithms inside the block, the
-    switch restored after. The U-Net's transposed convolutions run cuDNN's
-    backward-data algorithms, and some of those sum with atomics: without
-    this, two forwards of the same window on the card can differ in the
-    last bit, and a stream could not equal a batch-1 deploy bit for bit."""
-    was = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.deterministic = was
 
 
 def video_input(video_u8: torch.Tensor | None, valid: torch.Tensor,

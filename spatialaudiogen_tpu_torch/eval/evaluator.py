@@ -67,7 +67,7 @@ class Evaluator:
                  device: str = "cuda"):
         if mesh is not None:
             raise NotImplementedError("a device mesh (multi-device eval) is not ported yet; "
-                                      "see ROADMAP.md, 'Modules to port', item 14")
+                                      "see ROADMAP.md, 'Modules to port', item 14b")
         if emd_mode not in ("exact", "sinkhorn"):
             raise ValueError(f"emd_mode must be 'exact' or 'sinkhorn', got {emd_mode!r}")
         self.device = torch.device(device)

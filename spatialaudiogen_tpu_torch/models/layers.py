@@ -18,7 +18,10 @@ Tensors are NCHW; the conventions that matter for parity:
   * `dtype` is Flax's: None computes in the input's dtype, torch.bfloat16
     casts the input, kernel and bias to bfloat16 for the product while the
     parameters stay float32; BatchNorm takes its statistics and normalises
-    in float32 and returns its input's dtype (layers.py:51-90).
+    in float32 and returns its input's dtype (layers.py:51-90);
+  * under data parallelism (parallel.mesh.shard_model) BatchNorm takes its
+    moments over the data group's global batch, and a tensor-parallel Dense
+    holds a slice of its output units (see each class).
 """
 
 from __future__ import annotations
@@ -28,6 +31,12 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from spatialaudiogen_tpu_torch.parallel.collectives import (
+    all_reduce_sum,
+    copy_to_group,
+    gather_last_dim,
+)
 
 # Standard deviation of a unit normal truncated at +-2
 TRUNC_NORMAL_STD = 0.87962566103423978
@@ -65,7 +74,12 @@ def max_pool_same(x: torch.Tensor, k: int, s: int) -> torch.Tensor:
 
 
 class Dense(nn.Module):
-    """fully_connected parity: matmul over the last axis, any input rank."""
+    """fully_connected parity: matmul over the last axis, any input rank.
+
+    With `tp_group` set (parallel.mesh.shard_model) the layer holds this
+    rank's rows of the weight and bias, a contiguous slice of the output
+    units, and runs column parallel: the outputs of the group are gathered
+    in rank order, and the input's gradient is summed over the group."""
 
     def __init__(self, in_features: int, features: int,
                  activation: Callable | None = None, use_bias: bool = True,
@@ -74,10 +88,13 @@ class Dense(nn.Module):
         self.dense = nn.Linear(in_features, features, bias=use_bias)
         self.activation = activation
         self.dtype = dtype
+        self.tp_group = None
 
     def forward(self, x):
         d = self.dtype
+        x = copy_to_group(x, self.tp_group)
         y = F.linear(cast(x, d), cast(self.dense.weight, d), cast(self.dense.bias, d))
+        y = gather_last_dim(y, self.tp_group)
         return self.activation(y) if self.activation else y
 
 
@@ -104,8 +121,32 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.group = None
+
+    def _global_moments(self, x):
+        """(mean, biased variance) over the group's global batch, float32."""
+        xf = at_least_float32(x)
+        axes = (0, 2, 3)
+        local = torch.cat([xf.sum(dim=axes), xf.new_full((1,), xf.numel() / xf.shape[1])])
+        total = all_reduce_sum(local, self.group)
+        count = total[-1].detach()
+        mean = total[:-1] / count
+        centred = xf - mean[None, :, None, None]
+        var = all_reduce_sum((centred * centred).sum(dim=axes), self.group) / count
+        return mean, var
 
     def forward(self, x, batch_stats: bool, update_stats: bool = False):
+        if batch_stats and self.group is not None:
+            mean, var = self._global_moments(x)
+            if update_stats:
+                with torch.no_grad():
+                    self.mean.mul_(self.momentum).add_(mean, alpha=1 - self.momentum)
+                    self.var.mul_(self.momentum).add_(var, alpha=1 - self.momentum)
+            shape = (1, -1, 1, 1)
+            y = ((at_least_float32(x) - mean.view(shape))
+                 * torch.rsqrt(var.view(shape) + self.epsilon)
+                 * self.scale.view(shape) + self.bias.view(shape))
+            return y.to(x.dtype)
         if update_stats:
             if not batch_stats:
                 raise ValueError("running averages update from batch statistics")
@@ -208,10 +249,20 @@ def l2_regularization(model: nn.Module, weight_decay: float = 5e-4,
     (core.py:47-70) as the JAX package does (layers.py:236-258): biases and
     BN scale/offset are skipped, and `exclude` lists parameter-name
     substrings ('.'-joined) also exempted, e.g. the localization output
-    layer (model.py:253-256)."""
+    layer (model.py:253-256).
+
+    A tensor-parallel Dense holds a slice of its kernel: its term is the
+    sum over the model group (the full kernel's), and its gradient this
+    rank's slice's own, as every rank of the group adds the same value."""
+    groups = {id(mod.dense): mod.tp_group for mod in model.modules()
+              if isinstance(mod, Dense) and mod.tp_group is not None}
     squares = []
     for name, mod in model.named_modules():
         if isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             if not any(pat in f"{name}.weight" for pat in exclude):
-                squares.append(torch.sum(mod.weight.float() ** 2))
+                sq = torch.sum(mod.weight.float() ** 2)
+                if id(mod) in groups:
+                    whole = all_reduce_sum(sq.detach(), groups[id(mod)])
+                    sq = sq + (whole - sq.detach())
+                squares.append(sq)
     return 0.5 * weight_decay * torch.stack(squares).sum()

@@ -11,6 +11,13 @@ evaluation_ops/loss_ops):
 All channel metrics are masked by the per-video channel mask and averaged
 over the number of videos carrying each channel (model.py:119-126). The
 STFTs are the port's matmul DFTs (ops.dft), in float32.
+
+Under data parallelism (`group`: the data group of parallel.mesh) every
+batch sum and count is the global batch's: the per-channel sums are
+all-reduced with a differentiable collective, so each rank's loss is the
+global loss, and its gradient, averaged over the group, the global one.
+Shards whose clips have other layouts (WXY masks Z, WXYZ does not) have
+other channel counts, so no rank may normalise by its own.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ import torch
 
 from spatialaudiogen_tpu_torch.models.layers import l2_regularization
 from spatialaudiogen_tpu_torch.ops.dft import stft_for_loss_real, stft_real
+from spatialaudiogen_tpu_torch.parallel.collectives import all_reduce_sum
 
 EPS_LSD = 1e-2
 EPS_SNR = 1e-1
@@ -62,16 +70,16 @@ def temporal_snr_ps(gt, pred):
     return 10.0 * torch.log((p_signal + EPS_SNR) / (p_noise + EPS_SNR)) / math.log(10.0)
 
 
-def evaluation_metrics(pred, target, mask_channels, audio_rate: int):
+def evaluation_metrics(pred, target, mask_channels, audio_rate: int, group=None):
     """Masked metric battery. pred/target (B, T, C_out); mask (B, C_out).
 
     Returns (metrics dict of 0-d tensors, per_sample dict of (B, C_out)
-    tensors). Channel labels follow the reference's YZX order for
-    ambi_order=1.
+    tensors: this rank's rows). Channel labels follow the reference's YZX
+    order for ambi_order=1. `group`: the metrics of the data group's global
+    batch (module docstring).
     """
     window = int(0.025 * audio_rate)     # FFT_WINDOW * rate (definitions.py:10)
     overlap = 2                          # FFT_OVERLAP_R (definitions.py:11)
-    num_masked = torch.clamp(mask_channels.sum(dim=0), min=1.0)
 
     per_sample = {
         "stft": stft_mse_ps(target, pred, window, overlap),
@@ -80,26 +88,40 @@ def evaluation_metrics(pred, target, mask_channels, audio_rate: int):
         "snr": temporal_snr_ps(target, pred),
     }
 
-    metrics = {}
+    # batch sums: the masked per-channel sums of each metric, then (no
+    # gradient) the channel counts, the signal powers and the row count
+    sums = all_reduce_sum(torch.stack([(ps * mask_channels).sum(dim=0)
+                                       for ps in per_sample.values()]), group)
+    counts = torch.cat([mask_channels.sum(dim=0),
+                        torch.stack([(pred.detach() ** 2).mean(dim=2).sum(),
+                                     (target ** 2).mean(dim=2).sum(),
+                                     mask_channels.new_tensor(float(pred.shape[0]))])])
+    if group is not None:
+        counts = all_reduce_sum(counts, group)
     n_out = pred.shape[2]
+    num_masked = torch.clamp(counts[:n_out], min=1.0)
+
+    metrics = {}
     channel_names = "YZX" if n_out == 3 else [str(i) for i in range(n_out)]
-    for key, ps in per_sample.items():
-        per_channel = (ps * mask_channels).sum(dim=0) / num_masked * METRIC_SCALES[key]
+    for key, total in zip(per_sample, sums):
+        per_channel = total / num_masked * METRIC_SCALES[key]
         metrics[f"{key}/avg"] = per_channel.mean()
         for i, ch in zip(range(n_out), channel_names):
             metrics[f"{key}/{ch}"] = per_channel[i]
 
-    metrics["pow/pred"] = (pred ** 2).mean(dim=2).mean(dim=0).sum()
-    metrics["pow/gt"] = (target ** 2).mean(dim=2).mean(dim=0).sum()
+    # sum over time of the mean power over channels and rows
+    metrics["pow/pred"] = counts[n_out] / counts[n_out + 2]
+    metrics["pow/gt"] = counts[n_out + 1] / counts[n_out + 2]
     return metrics, per_sample
 
 
 def training_loss(pred, target, mask_channels, audio_rate: int, model=None,
-                  weight_decay: float = 5e-4, decay_exclude=()):
+                  weight_decay: float = 5e-4, decay_exclude=(), group=None):
     """Total loss = masked STFT-MSE x100 (+ L2 regularizers over `model`'s
-    kernels), reference model.py:156-159 + train.py:139-144.
+    kernels), reference model.py:156-159 + train.py:139-144, over the data
+    group's global batch when `group` is given.
     Returns (total, metrics dict)."""
-    metrics, _ = evaluation_metrics(pred, target, mask_channels, audio_rate)
+    metrics, _ = evaluation_metrics(pred, target, mask_channels, audio_rate, group)
     losses = {"stft/mse": metrics["stft/avg"]}
     total = losses["stft/mse"]
     if model is not None and weight_decay > 0:

@@ -11,9 +11,17 @@ step). `dtype` is every conv's compute dtype (models.layers).
 
 from __future__ import annotations
 
+import numpy as np
 import torch.nn.functional as F
 from torch import nn
 
+from spatialaudiogen_tpu_torch.models.convert import (
+    flatten,
+    from_flax,
+    nest,
+    restore_tf_var_dict,
+    to_flax,
+)
 from spatialaudiogen_tpu_torch.models.layers import Conv2D, max_pool_same
 
 STAGES = ("conv2", "conv3", "conv4", "conv5")
@@ -86,3 +94,30 @@ class ResNet18(nn.Module):
         for name in self.blocks:
             y = getattr(self, name)(y, batch_stats, update_stats)
         return y
+
+
+def load_npy_blob(npy_or_dict) -> dict:
+    """A resnet18.npy path (a pickled dict) or the dict itself -> the dict."""
+    if isinstance(npy_or_dict, dict):
+        return npy_or_dict
+    raw = np.load(npy_or_dict, allow_pickle=True)
+    return raw.item() if hasattr(raw, "item") else dict(raw)
+
+
+def load_npy_weights(npy_or_dict, state_dict: dict, in_channels: int = 3,
+                     prefix: str = ""):
+    """A reference-style resnet18.npy (flat TF variable names, reference
+    resnet.py:238-249) into a copy of `state_dict`, the port's counterpart
+    of spatialaudiogen_tpu.models.resnet.load_npy_weights: names prefixed
+    with `prefix` (the encoder's scope, e.g. "video_encoder"), matched
+    through models.convert.restore_tf_var_dict, conv1 kernels cut to their
+    first `in_channels` input channels (reference resnet.py:49).
+    -> (new state_dict, {unmatched npy name: shape})."""
+    blob = load_npy_blob(npy_or_dict)
+    if prefix:
+        blob = {f"{prefix}/{k}": v for k, v in blob.items()}
+    variables, unmatched = restore_tf_var_dict(blob, nest(to_flax(state_dict)),
+                                               conv1_in_channels=in_channels)
+    new = from_flax(flatten(variables))
+    return {k: new[k].to(device=v.device, dtype=v.dtype) for k, v in state_dict.items()}, \
+        unmatched

@@ -240,14 +240,23 @@ class SptAudioGen(nn.Module):
                             small_init=(f"localization.{self.localization.output_layer}",))
 
     def forward(self, audio, video=None, flow=None, taps: dict | None = None,
-                train: bool = False):
+                train: bool = False, return_ends: bool = False,
+                update_stats: bool | None = None):
         """audio (B, snd_size, n_in), frames (B, T, H, W, 3) -> (B, snd_dur, n_out).
 
         `train=True` is the train step's forward: the visual encoders' BNs
         run on batch statistics and update their running averages, as the
         JAX model's apply(..., train=True, mutable=["batch_stats"]) does.
         Pass a dict as `taps` to receive the |STFT| (NHWC, as the JAX
-        model's `stft_mag`) and the separation `mask`.
+        model's `stft_mag`) and the separation `mask`. `update_stats=False`
+        keeps the running averages of a train=True forward where they are
+        (the observe step's); None follows `train`.
+
+        `return_ends=True` returns (output, ends): the JAX model's taps
+        (sptaudiogen.py:339-387) under its keys and in its layouts:
+        `audio_encoder` and `{video,flow}_encoder` NHWC, `bottleneck`,
+        `localization/weights` and `localization/biases` repeated to the
+        audio rate, `separation` and `decoder/ambix`.
 
         `cfg.dft_precision` holds inside the call (ops.dft.precision_scope):
         "highest" turns TF32 off for matmuls and cuDNN convolutions, so every
@@ -256,9 +265,12 @@ class SptAudioGen(nn.Module):
         TF32 in both. A backward runs under its forward's setting only inside
         a scope of its own (train.steps.train_step)."""
         with precision_scope(self.cfg.dft_precision):
-            return self._forward(audio, video, flow, taps, train)
+            ends = {} if return_ends else None
+            out = self._forward(audio, video, flow, taps, train,
+                                train if update_stats is None else update_stats, ends)
+            return (out, ends) if return_ends else out
 
-    def _forward(self, audio, video, flow, taps, train):
+    def _forward(self, audio, video, flow, taps, train, update_stats, ends):
         cfg, g = self.cfg, self.cfg.geometry
         assert audio.shape[1] == g.snd_size, (audio.shape, g.snd_size)
         mono = audio.transpose(1, 2)                         # (B, n_in, snd_size)
@@ -274,10 +286,19 @@ class SptAudioGen(nn.Module):
                 assert frames is not None, f"{name} encoder requires {name} input"
                 x = cast(frames.flatten(0, 1).permute(0, 3, 1, 2), cfg.dtype).contiguous()
                 enc[name] = getattr(self, f"{name}_encoder")(
-                    x, train or cfg.bn_batch_stats, train)
+                    x, train or cfg.bn_batch_stats, update_stats)
         feats = self.bottleneck({k: (v[-1] if k == AUDIO else v)
                                  for k, v in enc.items()})
         weights, biases = self.localization(feats)
+        if ends is not None:
+            ends["audio_encoder"] = enc[AUDIO][-1].permute(0, 2, 3, 1)
+            for name in (VIDEO, FLOW):
+                if name in enc:
+                    ends[f"{name}_encoder"] = enc[name].permute(0, 2, 3, 1)
+            ends["bottleneck"] = feats
+            reps = g.snd_dur // weights.shape[1]
+            ends["localization/weights"] = weights.repeat_interleave(reps, dim=1)
+            ends["localization/biases"] = biases.repeat_interleave(reps, dim=1)
 
         if cfg.separation == NO_SEPARATION:
             x_sep = mono[:, :, None, g.nosep_ss: g.nosep_ss + g.snd_dur]
@@ -294,7 +315,11 @@ class SptAudioGen(nn.Module):
         s = x_sep.unflatten(3, (t_coef, g.snd_dur // t_coef))   # (B, in, tr, T, reps)
         ambi = torch.einsum("btoik,biktr->btro", weights.to(s.dtype), s)
         ambi = ambi + biases[..., 0].to(s.dtype)[:, :, None]
-        return ambi.reshape(b, g.snd_dur, g.num_out_channels)
+        ambi = ambi.reshape(b, g.snd_dur, g.num_out_channels)
+        if ends is not None:
+            ends["separation"] = x_sep
+            ends["decoder/ambix"] = ambi
+        return ambi
 
     def no_decay_paths(self) -> tuple:
         """Parameter-name substrings excluded from L2 weight decay (the

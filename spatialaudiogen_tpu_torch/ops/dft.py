@@ -30,6 +30,22 @@ def _basis(wind_size: int):
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN restricted to deterministic algorithms inside the block, the
+    switch restored after. The U-Net's transposed convolutions run cuDNN's
+    backward-data algorithms, and some of those sum with atomics: without
+    this, two forwards of the same window on the card can differ in the
+    last bit, and a stream could not equal a batch-1 deploy bit for bit.
+    The deploy and serving forwards and the eval step run inside it."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
 _DEVICE_CONSTS: dict = {}
 
 

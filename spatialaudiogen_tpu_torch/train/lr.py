@@ -32,13 +32,25 @@ def make_optimizer(params, base_lr: float = 1e-4) -> torch.optim.Adam:
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: list, max_norm: float) -> None:
+def clip_by_global_norm(grads: list, max_norm: float, sharded=(), group=None) -> None:
     """In place, as optax.clip_by_global_norm: when the global L2 norm of
     all gradients reaches max_norm, each becomes g / norm * max_norm.
     (torch.nn.utils.clip_grad_norm_ adds 1e-6 to the norm, so it differs.)
-    Stays on the device: no host sync."""
-    norm = torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(g) for g in grads]))
+    Stays on the device: no host sync.
+
+    Under tensor parallelism the entries of `sharded` (indices into grads)
+    are this rank's shards: their squares are summed over `group` (the
+    model group), so every rank clips by the full model's norm."""
+    if group is None or not sharded:
+        norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g) for g in grads]))
+    else:
+        sq = torch.stack([torch.linalg.vector_norm(g) ** 2 for g in grads])
+        mask = torch.zeros_like(sq, dtype=torch.bool)
+        mask[list(sharded)] = True
+        shard_sq = torch.where(mask, sq, 0.0).sum()
+        torch.distributed.all_reduce(shard_sq, group=group)
+        norm = torch.sqrt(torch.where(mask, 0.0, sq).sum() + shard_sq)
     clip = norm >= max_norm
     for g in grads:
         g.copy_(torch.where(clip, g / norm * max_norm, g))

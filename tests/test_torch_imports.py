@@ -67,7 +67,8 @@ def test_every_module_imports_without_jax_or_nvcc():
                  "data.pipeline", "data.readers", "dsp.geometry", "utils.io_audio",
                  "eval.evaluator", "ops.eval_metrics", "ops.sinkhorn", "cli.eval",
                  "cli.parse_eval_results", "ambisonics.emd", "utils.io_position",
-                 "deploy.stream", "cli.serve"):
+                 "deploy.stream", "cli.serve", "parallel.mesh", "parallel.distributed",
+                 "parallel.collectives", "utils.tensorboard"):
         assert f"spatialaudiogen_tpu_torch.{name}" in out["modules"], name
     assert out["forbidden"] == [], out["forbidden"]
 

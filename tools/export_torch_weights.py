@@ -1,6 +1,6 @@
 """Export a JAX model dir's checkpoint for the PyTorch port.
 
-    python tools/export_torch_weights.py MODEL_DIR
+    python tools/export_torch_weights.py MODEL_DIR [--with_optimizer]
 
 Restores the latest orbax checkpoint of MODEL_DIR the way the JAX deploy
 engine does (spatialaudiogen_tpu/deploy/deploy.py, through
@@ -9,6 +9,14 @@ MODEL_DIR/params.npz beside train-params.json, keyed by the JAX variable
 paths ('params/audio_encoder/conv1/conv/kernel', ...). That file plus
 train-params.json is all spatialaudiogen_tpu_torch needs: it reads no
 orbax and imports no JAX.
+
+--with_optimizer also writes MODEL_DIR/opt_state.npz, optax's Adam state
+(ScaleByAdamState): `count`, and `mu/<path>` and `nu/<path>` under the same
+variable paths, so that the port's cli.train --resume carries on with the
+moments and the step (spatialaudiogen_tpu_torch/train/checkpoint.py). The
+state is found by its type, not its position in the optimizer chain
+(train/lr.make_optimizer puts clip_by_global_norm in front when clip_norm
+is set), and the checkpoint is restored with the run's own chain.
 """
 
 from __future__ import annotations
@@ -32,8 +40,21 @@ def flat_variables(params, batch_stats) -> dict:
             for path, x in jax.tree_util.tree_flatten_with_path(tree)[0]}
 
 
-def export(model_dir: str) -> str:
-    """Write model_dir/params.npz from model_dir's latest checkpoint."""
+def adam_state(opt_state):
+    """The one optax ScaleByAdamState inside an optimizer state tree."""
+    import jax
+    import optax
+
+    found = [s for s in jax.tree_util.tree_leaves(
+        opt_state, is_leaf=lambda x: isinstance(x, optax.ScaleByAdamState))
+        if isinstance(s, optax.ScaleByAdamState)]
+    assert len(found) == 1, f"{len(found)} Adam states in the optimizer state"
+    return found[0]
+
+
+def export(model_dir: str, with_optimizer: bool = False) -> str:
+    """Write model_dir/params.npz (and with `with_optimizer`
+    model_dir/opt_state.npz) from model_dir's latest checkpoint."""
     import jax
 
     from spatialaudiogen_tpu.config import TrainConfig
@@ -52,20 +73,28 @@ def export(model_dir: str) -> str:
         if key in cfg.encoders:
             example[key] = np.zeros((1, g.vid_dur) + tuple(cfg.frame_hw) + (3,),
                                     np.float32)
-    state = create_train_state(SptAudioGen(mcfg), make_optimizer(),
-                               jax.random.PRNGKey(0), example)
+    tx = make_optimizer(cfg.lr, cfg.lr_decay, cfg.lr_iters, cfg.clip_norm)
+    state = create_train_state(SptAudioGen(mcfg), tx, jax.random.PRNGKey(0), example)
     state, step = restore_checkpoint(model_dir, state)
     assert step is not None, f"no checkpoint in {model_dir}"
     out = os.path.join(model_dir, "params.npz")
     np.savez(out, **flat_variables(state.params, state.batch_stats))
+    if with_optimizer:
+        adam = adam_state(state.opt_state)
+        moments = {f"{key}/{path}": value for key, tree in (("mu", adam.mu), ("nu", adam.nu))
+                   for path, value in flat_variables(tree, None).items()}
+        np.savez(os.path.join(model_dir, "opt_state.npz"),
+                 count=np.asarray(jax.device_get(adam.count)), **moments)
     return out
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("model_dir")
+    parser.add_argument("--with_optimizer", action="store_true",
+                        help="also write opt_state.npz, the Adam state")
     args = parser.parse_args(argv)
-    print(f"wrote {export(args.model_dir)}")
+    print(f"wrote {export(args.model_dir, args.with_optimizer)}")
 
 
 if __name__ == "__main__":
