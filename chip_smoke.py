@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (spatialaudiogen_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --multi_card   # phase 14's runs, a card per rank
+    python3 chip_smoke.py --multi_card   # phases 14 and 15's runs, a card per rank
 
 Drives the flagship model (audio + RGB encoders, unet_mask head with 32
 tracks, 224x448 frames, random weights from a seed) through the port's own
@@ -97,6 +97,25 @@ way, and fails (non-zero exit) on the first phase that goes wrong:
      histograms decode, K1/K2 launched once per step and once per observe
      step.
 
+ 15. sharded inference: cli.deploy, cli.eval and cli.serve with --n_data 2
+     (two ranks sharing the card, so over gloo; a process a rank,
+     INFER_RANK_MAIN) against --n_data 1 in this process, the flagship at
+     pallas_precision "highest": deploy of phase 4's clip (2 s at batch
+     16, --f32_fetch; the tail batch's pad lanes on both ranks) within
+     1e-5; eval of phase 7's model in Sinkhorn mode, the one file's rows
+     in the same order (EMD rtol 1e-3 / atol 1e-5, the rest rtol 1e-4 /
+     atol 1e-5); serve of four flagship sessions (cli.serve fetches
+     float16) within one f16 ulp or 1e-5; K1's launches on every rank,
+     each run's warm repeat's time and realtime factor beside one
+     process's;
+ 16. order 2: cli.train --ambi_order 2 for 6 steps at batch 32 over two
+     9-channel packed clips it writes (K1 and K2 once per step: n_in = 4),
+     MonoToAmbix's 9-channel deploy of the result (W, Y, Z, X passed
+     through bit for bit), the card against the CPU at "highest" (<=
+     1e-4), an Evaluator pass (K1 once per batch), and the order-2
+     forward and train step timed at batch 32. Phase 3 also holds K1 and
+     K2 at n_in = 4 ("order 2" cases, flagship shapes).
+
 Phase 10 also times the batch-128 train steps with cuDNN's deterministic
 algorithms, and phase 12 checks that five eval steps of one batch give
 one output (the eval step runs them).
@@ -105,16 +124,17 @@ With --multi_card (two cards or more) it builds the kernels and runs only
 phase 14's parallel runs, each rank on a card of its own, so that the
 mesh's groups run on NCCL: data parallel and tensor parallel on two
 cards, and n_data 2 x n_model 2 on four, held to one process as phase 14
-holds its runs; the last line is the same JSON object, with the count of
-cards.
+holds its runs; then phase 15's three sharded runs on two cards; the last
+line is the same JSON object, with the count of cards.
 
 The kernel counts are set to 0 just before each main-path run (deploy,
 the NHWC forward and train step, the f32, bf16 and default-model
 trainings, the default model's deploy, each cli.eval run, the f32 serve
 stream, the serve batcher's ticks, each rank's cli.train and the
-TensorBoard cli.train of phase 14) and read just after it. Everything
-else runs the model's default pallas_precision, "default" (K1, K2 and K3
-on bf16). The second-to-last line is a JSON object describing the
+TensorBoard cli.train of phase 14, each rank's and each one process's CLI
+of phase 15, phase 16's cli.train, deploy and eval) and read just after
+it. Everything else runs the model's default pallas_precision, "default"
+(K1, K2 and K3 on bf16), except phases 14 and 15's runs ("highest"). The second-to-last line is a JSON object describing the
 kernels (top-level times the bf16 route's, the 3xTF32 route's under
 "highest"; K1's and K2's launches are those of the f32 training, K3's
 those of the NHWC train step, with the NHWC forward's count under
@@ -124,7 +144,10 @@ those of the NHWC train step, with the NHWC forward's count under
 capacity-128 f32 batcher's 20 ticks under "serve_batcher_launches", and
 its batch-1 times under "serve_batch1"; K1's and K2's per rank in phase
 14's data and tensor parallel runs, and in its TensorBoard run, under
-"multi_device_launches"; "shapes" names every shape a
+"multi_device_launches"; K1's per rank in phase 15's sharded deploy, eval
+and serve under "sharded_launches", and K1's and K2's in phase 16's
+order-2 training (K1's also in its deploy and eval) under
+"order2_launches"; "shapes" names every shape a
 kernel was held to its plain version at, with its bf16-route times); the
 last is
 {"ok": true, "device": {...}}. Without a CUDA card the
@@ -134,6 +157,7 @@ script exits non-zero and prints no result. Scratch files go to
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -291,6 +315,9 @@ KERNEL_CASES = [  # name, (B, n_in, TR, T, F), mask dtype
     ("flagship bf16 mask", (16, 1, 32, 28, 1024), torch.bfloat16),
     ("ragged f32", (3, 1, 5, 30, 1024), torch.float32),
     ("ragged bf16 mask", (3, 1, 5, 30, 1024), torch.bfloat16),
+    # ambi_order=2: n_in = 4 input channels, the (B, n_in) axis one stride
+    ("order 2 f32", (16, 4, 32, 28, 1024), torch.float32),
+    ("order 2 bf16 mask", (16, 4, 32, 28, 1024), torch.bfloat16),
 ]
 # The (F, mask frames) that cli.train's flags reach beyond the flagship
 # (--audio_rate / --fft_window / --sample_dur; dsp/geometry.py), at batch
@@ -608,20 +635,25 @@ def write_model_dir(model_dir: Path, encoders=("audio", "video")) -> None:
 
 
 def write_clip(folder: Path, seed: int = SEED, level: float = 1.0,
-               seconds: int = CLIP_SECONDS) -> np.ndarray:
+               seconds: int = CLIP_SECONDS, order: int = 1) -> np.ndarray:
     """A clip of `seconds` (4 by default) in the packed layout
-    (data/packed.py), written with numpy only: PCM16 FOA audio, 10 fps
-    uint8 RGB frames (a bright blob moving over a textured background),
-    flow pixels (angle and magnitude bytes, as the flow jpgs hold them)
-    with per-frame magnitude limits, and the audio power index. `level`
-    scales the audio (1.0: an RMS of about 0.19). Returns the int16
-    audio."""
+    (data/packed.py), written with numpy only: PCM16 ambisonics of
+    `order` ((order + 1)^2 ACN channels: FOA by default, nine at order 2),
+    10 fps uint8 RGB frames (a bright blob moving over a textured
+    background), flow pixels (angle and magnitude bytes, as the flow jpgs
+    hold them) with per-frame magnitude limits, and the audio power index.
+    `level` scales the audio (1.0: an RMS of about 0.19). Returns the
+    int16 audio."""
     rng = np.random.RandomState(seed)
     n = seconds * RATE
     t = np.arange(n) / RATE
     w = level * (0.3 * np.sin(2 * np.pi * 440 * t) + 0.1 * rng.randn(n))
     az = np.linspace(-np.pi, np.pi, n)
-    foa = np.stack([w, w * np.sin(az), 0.2 * w, w * np.cos(az)], 1)
+    channels = [w, w * np.sin(az), 0.2 * w, w * np.cos(az)]
+    if order == 2:   # V, T, R, S, U of a source on the horizon at azimuth az
+        channels += [0.5 * w * np.sin(2 * az), 0.1 * w * np.sin(az), -0.2 * w,
+                     0.1 * w * np.cos(az), 0.5 * w * np.cos(2 * az)]
+    foa = np.stack(channels, 1)
     audio = np.clip(np.round(foa * 32767 * 0.8), -32768, 32767).astype(np.int16)
 
     h, wd = FRAME_HW
@@ -646,7 +678,7 @@ def write_clip(folder: Path, seed: int = SEED, level: float = 1.0,
     np.save(pack / "video.npy", frames)
     np.save(pack / "flow.npy", flow)
     np.save(pack / "flow_lims.npy", lims.astype(np.float32))
-    meta = {"version": 1, "rate": RATE, "num_channels": 4, "num_files": seconds,
+    meta = {"version": 1, "rate": RATE, "num_channels": len(channels), "num_files": seconds,
             "audio_dtype": "int16", "video_frames": n_frames,
             "frame_shape": [h, wd, 3], "flow_frames": n_frames, "flow_shape": [h, wd, 3]}
     (pack / "meta.json").write_text(json.dumps(meta))
@@ -924,12 +956,14 @@ def nhwc_path_phase(card: str) -> dict:
 # 7. train: cli.train on the card, then deploy the trained model
 # ---------------------------------------------------------------------------
 
-def write_train_db(db: Path) -> None:
-    """Two 18 s packed clips whose audio_pow.lst rows all pass the train
-    feeder's 0.2 silence gate (data/pipeline.py); the eval feeder takes
-    every tenth window of each, 34 samples (phase 12)."""
+def write_train_db(db: Path, order: int = 1, seconds: int = TRAIN_CLIP_SECONDS) -> None:
+    """Two packed clips (18 s by default) of ambisonics `order` whose
+    audio_pow.lst rows all pass the train feeder's 0.2 silence gate
+    (data/pipeline.py); the eval feeder takes every tenth window of each,
+    34 samples at 18 s (phase 12)."""
     for i in range(2):
-        write_clip(db / f"clip{i}", seed=SEED + 10 + i, level=1.6, seconds=TRAIN_CLIP_SECONDS)
+        write_clip(db / f"clip{i}", seed=SEED + 10 * order + i, level=1.6, seconds=seconds,
+                   order=order)
         levels = [float(line.split()[1]) for line in
                   (db / f"clip{i}" / "audio_pow.lst").read_text().splitlines()]
         if min(levels) <= 0.2:
@@ -1377,9 +1411,9 @@ def eval_phase(card: str) -> dict:
     layout = data["audio_mask"]
 
     def device_step():
-        p, mo, t, _, per = eval_step(ev.model, data)
-        ev._battery_device_fn(p, mo, t, layout, per["stft"], per["lsd"], per["mse"],
-                              per["snr"])
+        p, mo, t, _, _ = eval_step(ev.model, data)
+        ev._emd_device_fn(p, mo, t, layout)
+        ev._spectral_device_fn(p, t)
 
     step_ms = time_ms(device_step, warmup=2, iters=5)
     fwd_ms = time_ms(lambda: eval_step(ev.model, data), warmup=2, iters=5)
@@ -2106,6 +2140,385 @@ def multi_device_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 15. sharded inference: cli.deploy, cli.eval and cli.serve with --n_data 2
+# ---------------------------------------------------------------------------
+
+SH_DEPLOY_SECONDS = 2.0   # at batch 16: batches of 16 and 4 windows; the tail's 12 pad
+                          # lanes fill rank 0's block past 4 and all of rank 1's
+SH_SERVE_SECONDS = 2.0
+SH_SERVE_OFFSETS = (0, 5000, 48000, 17)     # four sessions: phase 4's mono rolled
+SH_DEPLOY_ATOL = 1e-5
+# serve, sharded against one process: cli.serve fetches float16, so an
+# element may round to the neighbouring float16 value (one ulp at its
+# magnitude); near zero, where that ulp is tiny, within SH_SERVE_ATOL
+SH_SERVE_ATOL = 1e-5
+# eval rows, sharded against one process: (rtol, atol) of the EMD columns
+# (Sinkhorn iterates on its inputs) and of the rest (phase 12's atol: the
+# snr columns near 0 dB have no relative scale; a first reading at atol
+# 1e-6 found snr/Z at -0.0058 dB 5.7e-6 apart)
+SH_EVAL_TOL = {"emd": (1e-3, 1e-5), "rest": (1e-4, 1e-5)}
+
+@contextlib.contextmanager
+def cli_probes(record: dict):
+    """While open, MonoToAmbix.deploy, Evaluator.run and cli.serve's serving
+    loop each run twice: the main path's call, with the kernel counts read
+    just after it into record["launches"], then the same call again, warm,
+    its seconds (synchronised host clock) into record["seconds"] (serving
+    also its served and wall seconds); the backend each mesh's groups took
+    goes to record["backends"], the float arrays save_wav writes to
+    record["wavs"]."""
+    from spatialaudiogen_tpu_torch.cli import serve
+    from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix
+    from spatialaudiogen_tpu_torch.eval.evaluator import Evaluator
+    from spatialaudiogen_tpu_torch.ops import masked_istft as k
+    from spatialaudiogen_tpu_torch.parallel import mesh
+    from spatialaudiogen_tpu_torch.utils import io_audio
+
+    record.update(launches=[], seconds={}, backends=[], wavs={})
+
+    def sync():    # (a CPU rehearsal of the phase has no card to wait for)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def twice(fn, name):
+        def wrapper(*a, **kw):
+            out = fn(*a, **kw)
+            record["launches"] += [k.launch_count, k.bwd_launch_count, k.nhwc_launch_count]
+            sync()
+            t0 = time.perf_counter()
+            again = fn(*a, **kw)
+            sync()
+            record["seconds"][name] = time.perf_counter() - t0
+            if name == "serve" and again is not None:
+                record["served_s"], record["wall_s"] = again["served_s"], again["wall_s"]
+            return out
+        return wrapper
+
+    def backend(device):
+        record["backends"].append(collective_backend(device))
+        return record["backends"][-1]
+
+    def keep(fn, data, *a, **kw):
+        record["wavs"].setdefault(os.path.basename(fn), np.asarray(data, np.float32))
+        return save_wav(fn, data, *a, **kw)
+
+    collective_backend, save_wav = mesh.collective_backend, io_audio.save_wav
+    originals = [(MonoToAmbix, "deploy"), (Evaluator, "run"), (serve, "_serve_batched")]
+    saved = [getattr(obj, name) for obj, name in originals]
+    for (obj, name), fn in zip(originals, saved):
+        setattr(obj, name, twice(fn, {"_serve_batched": "serve", "run": "eval"}.get(name, name)))
+    mesh.collective_backend, io_audio.save_wav = backend, keep
+    k.launch_count = k.bwd_launch_count = k.nhwc_launch_count = 0
+    try:
+        yield record
+    finally:
+        for (obj, name), fn in zip(originals, saved):
+            setattr(obj, name, fn)
+        mesh.collective_backend, io_audio.save_wav = collective_backend, save_wav
+
+
+def run_cli(module: str, argv: list, out: str, rank: tuple | None = None) -> dict:
+    """`module`'s CLI in this process under cli_probes: main(argv), or with
+    `rank` = (coordinator, n, r) rank r's rank_main. What main returns on
+    rank 0 (deploy's array, eval's rows, serve's float outputs) is saved
+    beside `out`. -> the rank's result."""
+    import importlib
+
+    mod = importlib.import_module(module)
+    with cli_probes({}) as record:
+        ret = mod.rank_main(argv, *rank) if rank else mod.main(argv)
+    if isinstance(ret, np.ndarray):
+        np.save(out + ".npy", ret)
+    elif isinstance(ret, tuple) and ret[1]:
+        Path(out + ".json").write_text(json.dumps([[sid, rec] for sid, rec in ret[1]]))
+    wavs = record.pop("wavs")
+    if wavs:
+        np.savez(out + ".npz", **wavs)
+    return {"rank": rank[2] if rank else 0, "launches": record["launches"][:3],
+            "device": torch.cuda.current_device() if torch.cuda.is_available() else "cpu",
+            **{key: record[key] for key in ("seconds", "backends", "served_s", "wall_s")
+               if key in record}}
+
+
+# One rank of phase 15: run_cli in a process of its own, its result printed
+# on a RANK_RESULT line.
+INFER_RANK_MAIN = r"""
+import json, sys
+import chip_smoke
+
+spec = json.loads(sys.argv[1])
+result = chip_smoke.run_cli(spec["module"], spec["argv"], spec["out"],
+                            (spec["coordinator"], spec["n"], spec["rank"]))
+print("RANK_RESULT " + json.dumps(result), flush=True)
+"""
+
+
+def infer_ranks(module: str, argv: list, n: int, out: Path) -> tuple[list, float]:
+    """`module`'s CLI with --n_data n: n = 1 in this process, else one
+    process per rank (rank r on card r % cards: gloo when ranks share a
+    card, NCCL when each has its own). -> (each rank's result, wall s)."""
+    import socket
+
+    argv = [*map(str, argv), "--n_data", str(n), "--device", DEVICE]
+    t0 = time.perf_counter()
+    if n == 1:
+        return [run_cli(module, argv, str(out))], time.perf_counter() - t0
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", INFER_RANK_MAIN, json.dumps(
+            {"module": module, "argv": argv, "coordinator": f"localhost:{port}", "n": n,
+             "rank": r, "out": str(out)})],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(n)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=400)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    wall = time.perf_counter() - t0
+    results = []
+    for r, (p, text) in enumerate(zip(procs, outs)):
+        lines = [line for line in text.splitlines() if line.startswith("RANK_RESULT ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"{module} rank {r} of {n} exited {p.returncode}:\n"
+                                 f"{text[-3000:]}")
+        results.append(json.loads(lines[-1][len("RANK_RESULT "):]))
+    return results, wall
+
+
+def sharded_pair(card: str, what: str, module: str, argv_of, out: Path) -> tuple:
+    """The CLI at --n_data 1 and at --n_data 2 (two ranks, one per card
+    when there are two, else sharing one over gloo), argv_of(n) its
+    arguments: K1 launched on every rank, the groups on the backend the
+    cards call for. -> (one process's RANK_RESULT, the ranks' RANK_RESULTs)."""
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= 2 else "gloo"
+    (one,), one_wall = infer_ranks(module, argv_of(1), 1, out.with_name(out.name + "_1"))
+    ranks, wall = infer_ranks(module, argv_of(2), 2, out.with_name(out.name + "_2"))
+    for r in [one] + ranks:
+        who = "one process" if r is one else f"rank {r['rank']}"
+        log(f"  {what}, {who} (cuda:{r['device']}, groups {r['backends'] or 'none'}): "
+            f"K1/K2/K3 launches {r['launches']}, timed {r['seconds']} [{card}]")
+    log(f"  {what}: wall of the command (models loaded) {one_wall:.1f} s at --n_data 1 in "
+        f"this process, {wall:.1f} s at --n_data 2 over {backend} (processes started)")
+    if any(r["launches"][0] < 1 or r["launches"][1:] != [0, 0] for r in [one] + ranks):
+        raise AssertionError(f"{what}: K1/K2/K3 launches {[r['launches'] for r in ranks]}")
+    if any(set(r["backends"]) != {backend} for r in ranks):
+        raise AssertionError(f"{what}: the mesh's groups took "
+                             f"{[r['backends'] for r in ranks]}, not {backend}")
+    return one, ranks
+
+
+def sharded_inference_runs(card: str, eval_model: Path | None = None) -> dict:
+    """cli.deploy, cli.eval and cli.serve with --n_data 2 (a process a
+    rank, INFER_RANK_MAIN) against --n_data 1 (in this process), under
+    cli_probes, the flagship at
+    pallas_precision "highest" (3xTF32, so float32 summation order is the
+    only difference): deploy over phase 4's clip at batch 16 with
+    --f32_fetch within SH_DEPLOY_ATOL; eval of phase 7's model over its
+    dataset with --device_metrics --emd sinkhorn, the same rows in the same
+    order within SH_EVAL_TOL; serve of four sessions of phase 4's clip
+    (mono rolled, its packed frames) within one float16 ulp or
+    SH_SERVE_ATOL (cli.serve fetches float16). Each with its K1 launches per rank,
+    and its warm repeat's time and realtime factor. `eval_model`: the model eval
+    scores (phase 7's by default). -> {run: K1 launches per rank}."""
+    from spatialaudiogen_tpu_torch.utils.io_audio import save_wav
+
+    model, clip = model_dir_at(SCRATCH / "model", "highest"), SCRATCH / "clip"
+    out = {}
+
+    argv = [model, clip, "--batch_size", DEPLOY_BATCH, "--deploy_start", DEPLOY_START,
+            "--deploy_duration", SH_DEPLOY_SECONDS, "--f32_fetch"]
+    one, ranks = sharded_pair(card, "deploy", "spatialaudiogen_tpu_torch.cli.deploy",
+                              lambda n: argv, SCRATCH / "sh_deploy")
+    a, b = (np.load(SCRATCH / f"sh_deploy_{n}.npy") for n in (1, 2))
+    err = float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+    t1, t2 = one["seconds"]["deploy"], ranks[0]["seconds"]["deploy"]
+    log(f"sharded deploy ({SH_DEPLOY_SECONDS} s, batch {DEPLOY_BATCH}, 3xTF32, f32 fetch): "
+        f"shape {b.shape}, max |2 ranks - one process| {err:.3e} (limit {SH_DEPLOY_ATOL:g}); "
+        f"deploy() warm {t1:.3f} s ({SH_DEPLOY_SECONDS / t1:.2f}x realtime) in one process, "
+        f"{t2:.3f} s ({SH_DEPLOY_SECONDS / t2:.2f}x) on rank 0 [{card}]")
+    if not (a.shape == b.shape and np.array_equal(a[:, 0], b[:, 0]) and err <= SH_DEPLOY_ATOL
+            and np.isfinite(b).all()):
+        raise AssertionError(f"sharded deploy: {a.shape} vs {b.shape}, max diff {err:.3e}")
+    out["deploy"] = [r["launches"][0] for r in ranks]
+
+    trained = model_dir_at(eval_model or SCRATCH / "trained", "highest")
+    dirs = []
+    for n in (1, 2):
+        d = SCRATCH / f"sh_eval_model_{n}"
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.copytree(trained, d)
+        dirs.append(d)
+    flags = ["--db_dir", SCRATCH / "train_db", "--batch_size", EVAL_BATCH, "--n_workers", "1",
+             "--device_metrics", "--emd", "sinkhorn"]
+    one, ranks = sharded_pair(card, "eval", "spatialaudiogen_tpu_torch.cli.eval",
+                              lambda n: [dirs[n - 1]] + flags, SCRATCH / "sh_eval")
+    got, want = (json.loads((SCRATCH / f"sh_eval_{n}.json").read_text()) for n in (2, 1))
+    worst = {}
+    for (sid_g, g), (sid_w, w) in zip(got, want):
+        if sid_g != sid_w:
+            raise AssertionError(f"sharded eval rows out of order: {sid_g} != {sid_w}")
+        for m, v in w.items():
+            rtol, atol = SH_EVAL_TOL["emd" if m.startswith("emd/") else "rest"]
+            worst[m] = max(worst.get(m, 0.0), abs(g[m] - v))
+            if abs(g[m] - v) > atol + rtol * abs(v) or not np.isfinite(g[m]):
+                raise AssertionError(f"sharded eval {sid_g} {m}: {g[m]} vs {v}")
+    n_rows = len(want)
+    log(f"sharded eval (--device_metrics --emd sinkhorn, batch {EVAL_BATCH}, 3xTF32): "
+        f"{len(got)} rows in the one file, same ids and order as one process; max |diff| "
+        + ", ".join(f"{m} {worst[m]:.2e}" for m in ("stft/avg", "mse/avg", "emd/dir"))
+        + f"; run() warm {one['seconds']['eval']:.2f} s "
+        f"({n_rows / one['seconds']['eval']:.1f} "
+        f"samples/s) in one process, {ranks[0]['seconds']['eval']:.2f} s "
+        f"({n_rows / ranks[0]['seconds']['eval']:.1f}) on rank 0 [{card}]")
+    if len(got) != n_rows or any(r["launches"][0] != -(-n_rows // EVAL_BATCH) for r in ranks):
+        raise AssertionError(f"sharded eval: {len(got)} rows of {n_rows}, K1 launches "
+                             f"{[r['launches'] for r in ranks]}")
+    out["eval"] = [r["launches"][0] for r in ranks]
+
+    audio = np.load(clip / "packed" / "ambix.npy")[:, 0].astype(np.float32) / 32768.0
+    n_samples = int(SH_SERVE_SECONDS * RATE)
+    ins = []
+    for i, off in enumerate(SH_SERVE_OFFSETS):
+        ins.append(str(SCRATCH / f"sh_serve_in{i}.wav"))
+        save_wav(ins[-1], np.roll(audio, -off)[:n_samples, None], RATE)
+    outs = [str(SCRATCH / f"sh_serve_out{i}.wav") for i in range(len(ins))]
+    argv = [model, ",".join(ins), ",".join(outs), "--frames_dir",
+            ",".join([str(clip)] * len(ins))]
+    one, ranks = sharded_pair(card, "serve", "spatialaudiogen_tpu_torch.cli.serve",
+                              lambda n: argv, SCRATCH / "sh_serve")
+    a, b = (np.load(SCRATCH / f"sh_serve_{n}.npz") for n in (1, 2))
+    if len(a.files) != len(ins) or sorted(a.files) != sorted(b.files):
+        raise AssertionError(f"sharded serve wrote {sorted(b.files)}, one process "
+                             f"{sorted(a.files)}")
+    shares, diff = [], 0.0
+    for key in sorted(a.files):
+        x, y = b[key], a[key]
+        if x.shape != y.shape or not np.array_equal(x[:, 0], y[:, 0]):
+            raise AssertionError(f"sharded serve {key}: shapes {x.shape} {y.shape} or W "
+                                 f"passthrough differ")
+        ulp = np.spacing(np.maximum(np.abs(x), np.abs(y)).astype(np.float16))
+        over = np.abs(x - y) > np.maximum(ulp.astype(np.float32) * (1 + 1e-6),
+                                          SH_SERVE_ATOL)
+        if over.any():
+            raise AssertionError(f"sharded serve {key}: {int(over.sum())} elements over "
+                                 f"one f16 ulp and {SH_SERVE_ATOL:g}")
+        shares.append(float((x == y).mean()))
+        diff = max(diff, float(np.abs(x - y).max()))
+    log(f"sharded serve ({len(ins)} sessions of {SH_SERVE_SECONDS} s, 3xTF32, float16 "
+        f"fetch): every output within one f16 ulp or {SH_SERVE_ATOL:g} of one process, "
+        f"{100 * min(shares):.2f}% bitwise or more, max |diff| {diff:.2e}; warm, "
+        f"{one['served_s']:.1f} s served in {one['wall_s']:.2f} s "
+        f"({one['served_s'] / one['wall_s']:.1f}x realtime aggregate) in one process, in "
+        f"{ranks[0]['wall_s']:.2f} s ({ranks[0]['served_s'] / ranks[0]['wall_s']:.1f}x) "
+        f"on 2 ranks [{card}]")
+    out["serve"] = [r["launches"][0] for r in ranks]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 16. order 2: cli.train --ambi_order 2, a 9-channel deploy, eval
+# ---------------------------------------------------------------------------
+
+ORDER2_CLIP_SECONDS = 6
+ORDER2_BATCH = 32
+
+
+def order2_phase(card: str) -> dict:
+    """The flagship at ambi_order=2 (n_in = 4 into K1 and K2; five channels
+    predicted): cli.train --ambi_order 2 for TRAIN_STEPS steps at batch 32
+    over two 9-channel packed clips written here (K1 and K2 once per step),
+    MonoToAmbix deploys the trained model to 9 channels on the card (W, Y,
+    Z, X passed through bit for bit, K1 launched), the same params on the
+    CPU against the card at pallas_precision "highest" (<= 1e-4), the
+    Evaluator's pass over the clips (--device_metrics, Sinkhorn; K1 once per
+    batch), and the order-2 forward and train step timed at batch 32."""
+    from spatialaudiogen_tpu_torch.config import TrainConfig
+    from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix
+    from spatialaudiogen_tpu_torch.eval.evaluator import Evaluator
+    from spatialaudiogen_tpu_torch.ops import masked_istft as k
+    from spatialaudiogen_tpu_torch.train.state import create_train_state
+    from spatialaudiogen_tpu_torch.train.steps import train_step
+
+    db, model_dir = SCRATCH / "order2_db", SCRATCH / "order2"
+    write_train_db(db, order=2, seconds=ORDER2_CLIP_SECONDS)
+    _, launches, _ = cli_train_run(db, model_dir, "--ambi_order", "2", "--frame_hw",
+                                   *map(str, FRAME_HW))
+    if launches[:2] != (TRAIN_STEPS, TRAIN_STEPS):
+        raise AssertionError(f"order 2: K1/K2 launched {launches[:2]} times in "
+                             f"{TRAIN_STEPS} steps")
+
+    clip = db / "clip0"
+    audio = np.load(clip / "packed" / "ambix.npy")
+    engine = MonoToAmbix(str(model_dir), batch_size=DEPLOY_BATCH, device=DEVICE)
+    k.launch_count = k.bwd_launch_count = 0
+    ambi = engine.deploy(str(clip), deploy_start=DEPLOY_START, deploy_duration=1.0)
+    deploy_launches = (k.launch_count, k.bwd_launch_count)
+    s0 = int(DEPLOY_START * RATE)
+    passthrough = audio[s0: s0 + RATE, :4].astype(np.float32) / 32768.0
+    log(f"order 2 deploy (card, batch {DEPLOY_BATCH}): shape {ambi.shape}, K1/K2 launches "
+        f"{deploy_launches[0]}/{deploy_launches[1]}")
+    if ambi.shape != (RATE, 9) or not np.isfinite(ambi).all():
+        raise AssertionError(f"order 2 deploy: shape {ambi.shape}")
+    if not np.array_equal(ambi[:, :4], passthrough):
+        raise AssertionError("order 2 deploy: W, Y, Z, X are not the input bit for bit")
+    if deploy_launches[0] < 1 or deploy_launches[1]:
+        raise AssertionError(f"order 2 deploy: K1/K2 launched {deploy_launches}")
+
+    exact = {}
+    for dev, mdir in ((DEVICE, model_dir_at(model_dir, "highest")), ("cpu", model_dir)):
+        eng = MonoToAmbix(str(mdir), batch_size=DEPLOY_BATCH, device=dev, f16_fetch=False)
+        exact[dev] = eng.deploy(str(clip), deploy_start=DEPLOY_START,
+                                deploy_duration=CPU_SECONDS)
+    err = rel_l2(exact[DEVICE][:, 4:], exact["cpu"][:, 4:])
+    log(f"order 2 deploy card (pallas_precision=highest) vs CPU over {CPU_SECONDS} s: "
+        f"relative L2 {err:.3e} (limit 1e-4)")
+    if not (np.array_equal(exact[DEVICE][:, :4], exact["cpu"][:, :4]) and err <= 1e-4):
+        raise AssertionError(f"order 2 deploy: card and CPU disagree ({err:.3e})")
+
+    ev = Evaluator(str(model_dir), db_dir=str(db), batch_size=EVAL_BATCH, n_workers=1,
+                   device_metrics=True, emd_mode="sinkhorn", device=DEVICE)
+    k.launch_count = 0
+    summary, rows = ev.run(output_fn=str(SCRATCH / "order2_eval.txt"), host_threads=4,
+                           print_every=0)
+    eval_launches = k.launch_count
+    log(f"order 2 eval: {len(rows)} samples, K1 launches {eval_launches}, stft/avg "
+        f"{summary['stft/avg']:.4f}, emd/dir {summary['emd/dir']:.4f}")
+    if not rows or not all(np.isfinite(v) for v in summary.values()) or \
+            eval_launches != -(-len(rows) // EVAL_BATCH):
+        raise AssertionError(f"order 2 eval: {len(rows)} rows, K1 launched {eval_launches}")
+
+    cfg = TrainConfig(encoders=("audio", "video"), frame_hw=FRAME_HW, seed=SEED, ambi_order=2)
+    g = cfg.model_config().geometry
+    state = create_train_state(cfg, DEVICE)
+    data = synthetic_batch(torch.Generator(device=DEVICE).manual_seed(SEED + 16),
+                           ORDER2_BATCH, g, FRAME_HW, DEVICE)
+    audio_in = data["ambix"][:, :, :g.num_in_channels].contiguous()
+    video = data["video"].float() / 255.0 - 0.5
+    model = state.model.eval()
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: model(audio_in, video), warmup=2, iters=10)
+    model.train()
+    step_ms = time_ms(lambda: train_step(state, data, 1e-4, cfg.weight_decay), warmup=2,
+                      iters=5)
+    log(f"order 2 flagship (n_in 4, 5 channels predicted), batch {ORDER2_BATCH} f32: forward "
+        f"{fwd_ms:.2f} ms -> {ORDER2_BATCH * g.snd_dur / RATE / (fwd_ms / 1e3):.1f}x realtime; "
+        f"train step {step_ms:.2f} ms -> {ORDER2_BATCH / (step_ms / 1e3):.1f} samples/s [{card}]")
+    del state, data, model
+    torch.cuda.empty_cache()
+    return {"launches": {"train": launches[0], "deploy": deploy_launches[0],
+                         "eval": eval_launches},
+            "bwd_launches": {"train": launches[1]}}
+
+
 def phase(fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -2117,7 +2530,9 @@ def multi_card_main() -> int:
     """--multi_card: phase 14's parallel runs with a card per rank, so the
     mesh's groups run on NCCL (MD_CARD_RUNS: data parallel and tensor
     parallel on two cards, the 2x2 grid on four), each held to one process
-    as phase 14 holds its runs. Needs at least two cards."""
+    as phase 14 holds its runs; then phase 15's sharded deploy, eval (of
+    the random-weight flagship: no phase 7 here) and serve, two ranks on
+    two cards. Needs at least two cards."""
     t_start = time.perf_counter()
     card = preconditions()
     cards = torch.cuda.device_count()
@@ -2130,12 +2545,15 @@ def multi_card_main() -> int:
         phase(write_train_db, SCRATCH / "train_db")
         multi = phase(md_parallel_runs, card,
                       [run for run in MD_CARD_RUNS if run[1] * run[2] <= cards])
+        write_model_dir(SCRATCH / "model")
+        write_clip(SCRATCH / "clip")
+        sharded = phase(sharded_inference_runs, card, eval_model=SCRATCH / "model")
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     log(f"chip_smoke --multi_card: {time.perf_counter() - t_start:.1f} s in all, the build "
         f"included")
     log(f"card: {card}")
-    log(json.dumps({"multi_device_launches": multi}))
+    log(json.dumps({"multi_device_launches": multi, "sharded_launches": sharded}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": cards}}))
@@ -2164,6 +2582,8 @@ def main() -> int:
         evaluation = phase(eval_phase, card)
         serving = phase(serve_phase, card)
         multi = phase(multi_device_phase, card)
+        sharded = phase(sharded_inference_runs, card)
+        order2 = phase(order2_phase, card)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     # The top-level numbers are the "default" (bf16) route's, the one the
@@ -2181,12 +2601,15 @@ def main() -> int:
               "serve_batcher_launches": serving["batcher_launches"],
               "serve_batch1": serving["batch1"],
               "multi_device_launches": {what: [r[0] for r in ranks] if what != "tb"
-                                        else ranks[0] for what, ranks in multi.items()}}, ()),
+                                        else ranks[0] for what, ranks in multi.items()},
+              "sharded_launches": sharded,
+              "order2_launches": order2["launches"]}, ()),
             ("masked_istft_bwd", "masked_istft_bwd.cu", K2_REPLACES, k2_times,
              {"launches": train["bwd_launches"],
               "default_model_launches": default["bwd_launches"],
               "multi_device_launches": {what: [r[1] for r in ranks] if what != "tb"
-                                        else ranks[1] for what, ranks in multi.items()}}, ()),
+                                        else ranks[1] for what, ranks in multi.items()},
+              "order2_launches": order2["bwd_launches"]}, ()),
             ("masked_istft_nhwc", "masked_istft_nhwc.cu", K3_REPLACES, k3_times, k3,
              ("k1_ms",))):
         main, highest = times["flagship f32", "default"], times["flagship f32", "highest"]

@@ -7,13 +7,23 @@ plus --device.
 
 MODEL_DIR holds train-params.json and params.npz (export a JAX model dir
 with tools/export_torch_weights.py). The reference's video outputs (VIDEO,
---save_video, --overlay_map, --VR) and --n_data > 1 are parsed and refused
-with NotImplementedError until their paths are ported.
+--save_video, --overlay_map, --VR) are parsed and refused with
+NotImplementedError until their paths are ported.
+
+--n_data N shards each window batch over N ranks on this host (one card
+each on CUDA, CPU processes under --device cpu; ranks that share a card
+run their collectives over gloo): each rank runs its block of every
+batch's rows, and rank 0 gathers the predictions and writes the wav.
+--batch_size must divide by N.
+
+    python -m spatialaudiogen_tpu_torch.cli.deploy MODEL_DIR INPUT_FOLDER \
+        --save_ambix --output_fn out --n_data 2
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 
 
 def parse_arguments(argv=None):
@@ -31,7 +41,8 @@ def parse_arguments(argv=None):
     parser.add_argument("--VR", action="store_true", help="360 video output.")
     parser.add_argument("--batch_size", default=32, type=int)
     parser.add_argument("--n_data", default=1, type=int,
-                        help="Devices to shard each window batch over (one so far).")
+                        help="Ranks to shard each window batch over (one card each "
+                             "on CUDA).")
     parser.add_argument("--compute_dtype", default=None, choices=["float32", "bfloat16"],
                         help="Override the training compute dtype.")
     parser.add_argument("--crossfade", action="store_true",
@@ -50,7 +61,8 @@ def parse_arguments(argv=None):
 
 
 def refuse_unported(args) -> None:
-    """NotImplementedError for the flags whose paths are not ported yet."""
+    """NotImplementedError for the flags whose paths are not ported yet, and
+    ValueError for --n_data that cannot shard --batch_size."""
     later = "is not ported yet; see ROADMAP.md, 'Modules to port', item"
     for flag, on in (("the VIDEO argument", bool(args.video)),
                      ("--save_video", args.save_video), ("--overlay_map", args.overlay_map),
@@ -58,23 +70,43 @@ def refuse_unported(args) -> None:
         if on:
             raise NotImplementedError(f"{flag} (video output) {later} 15d (pass "
                                       f"--save_ambix for the ambisonics wav)")
-    if args.n_data > 1:
-        raise NotImplementedError(f"--n_data > 1 (multi-device deploy) {later} 14b")
+    if args.n_data < 1 or args.batch_size % args.n_data:
+        raise ValueError(f"--batch_size {args.batch_size} must divide over --n_data "
+                         f"{args.n_data}")
+
+
+def rank_main(argv: list, coordinator: str, n_ranks: int, rank: int):
+    """One rank of the --n_data form (parallel.distributed.spawn_local);
+    -> what main returns on this rank."""
+    from spatialaudiogen_tpu_torch.parallel.distributed import run_as_rank
+
+    return run_as_rank(main, argv, coordinator, n_ranks, rank, parse_arguments(argv).device)
 
 
 def main(argv=None):
+    """Deploy; -> the (N, channels) ambisonics on rank 0 (None on the other
+    ranks, and from the command that spawned the ranks of --n_data)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_arguments(argv)
     refuse_unported(args)
-    from spatialaudiogen_tpu_torch.utils.io_audio import save_wav
-    from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix
+    from spatialaudiogen_tpu_torch.parallel.distributed import is_distributed, spawn_local
 
+    if args.n_data > 1 and not is_distributed():
+        return spawn_local("spatialaudiogen_tpu_torch.cli.deploy", argv, args.n_data)
+    from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix
+    from spatialaudiogen_tpu_torch.parallel.mesh import data_mesh
+    from spatialaudiogen_tpu_torch.utils.io_audio import save_wav
+
+    device, mesh = data_mesh(args.n_data, args.device)
     model = MonoToAmbix(args.model_dir, batch_size=args.batch_size,
-                        device=args.device, compute_dtype=args.compute_dtype,
+                        device=device, compute_dtype=args.compute_dtype,
                         yuv_frames=False if args.rgb_frames else None,
-                        f16_fetch=not args.f32_fetch)
+                        f16_fetch=not args.f32_fetch, mesh=mesh)
     print("Generating ambisonics...")
     ambi = model.deploy(args.input_folder, args.deploy_start, args.deploy_duration,
                         crossfade=args.crossfade)
+    if ambi is None:       # not rank 0
+        return None
     print(f"Predicted {ambi.shape[0] / model.cfg.audio_rate:.1f}s of "
           f"{ambi.shape[1]}-channel ambisonics")
     if args.save_ambix:

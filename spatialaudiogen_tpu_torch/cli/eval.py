@@ -9,8 +9,12 @@
 MODEL_DIR holds train-params.json and params.npz (export a JAX model dir
 with tools/export_torch_weights.py). Rows go to MODEL_DIR/eval-detailed.txt;
 aggregate them with `python -m spatialaudiogen_tpu_torch.cli.parse_eval_results`.
---n_data > 1 (multi-device eval) is parsed and refused with
-NotImplementedError until that path is ported.
+
+--n_data N shards each eval batch over N ranks on this host (one card each
+on CUDA, CPU processes under --device cpu): every rank forms the same
+batches (the feeder on one thread), runs its block of rows, and rank 0
+scores the gathered rows and writes the one eval-detailed.txt.
+--batch_size must divide by N.
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ def parse_arguments(argv=None):
                              "semantics); 'sinkhorn' = whole-batch annealed "
                              "Sinkhorn on the device (ops/sinkhorn.py).")
     parser.add_argument("--n_data", default=None, type=int,
-                        help="Devices to shard each eval batch over (one so far).")
+                        help="Ranks to shard each eval batch over (one card each on "
+                             "CUDA; the feeder then runs one thread).")
     parser.add_argument("--compute_dtype", default=None,
                         choices=["float32", "bfloat16"],
                         help="Override the training compute dtype, e.g. "
@@ -62,11 +67,16 @@ def parse_arguments(argv=None):
     return args
 
 
-def main(argv=None):
-    args = parse_arguments(argv)
-    if args.n_data is not None and args.n_data > 1:
-        raise NotImplementedError("--n_data > 1 (multi-device eval) is not ported yet; "
-                                  "see ROADMAP.md, 'Modules to port', item 14b")
+def check_flags(args) -> None:
+    """ValueError for --n_data that cannot shard --batch_size."""
+    n_data = args.n_data or 1
+    if n_data < 1 or args.batch_size % n_data:
+        raise ValueError(f"--batch_size {args.batch_size} must divide over --n_data {n_data}")
+
+
+def guard_outputs(args) -> None:
+    """FileExistsError when eval-detailed.txt (or a shard of it) exists and
+    --overwrite is not given; with --overwrite they go."""
     eval_fn = os.path.join(args.model_dir, "eval-detailed.txt")
     if not os.path.exists(args.model_dir):
         raise FileNotFoundError(f"Model dir does not exist: {args.model_dir}")
@@ -81,21 +91,55 @@ def main(argv=None):
     for fn in existing:
         os.remove(fn)
 
-    from spatialaudiogen_tpu_torch.eval.evaluator import Evaluator
 
+def rank_main(argv: list, coordinator: str, n_ranks: int, rank: int):
+    """One rank of the --n_data form (parallel.distributed.spawn_local);
+    -> what main returns on this rank."""
+    from spatialaudiogen_tpu_torch.parallel.distributed import run_as_rank
+
+    return run_as_rank(main, argv, coordinator, n_ranks, rank, parse_arguments(argv).device)
+
+
+def main(argv=None):
+    """Evaluate; -> (summary, rows) on rank 0 (({}, []) on the other ranks,
+    None from the command that spawned the ranks of --n_data)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = parse_arguments(argv)
+    check_flags(args)
+    n_data = args.n_data or 1
+    import torch.distributed as dist
+
+    from spatialaudiogen_tpu_torch.parallel.distributed import is_distributed, spawn_local
+
+    sharded = n_data > 1 and is_distributed()
+    if not sharded or dist.get_rank() == 0:
+        # one guard, on rank 0 (and in the command that spawns the ranks)
+        guard_outputs(args)
+    if n_data > 1 and not sharded:
+        return spawn_local("spatialaudiogen_tpu_torch.cli.eval", argv, n_data)
+
+    from spatialaudiogen_tpu_torch.eval.evaluator import Evaluator
+    from spatialaudiogen_tpu_torch.parallel.mesh import data_mesh
+
+    device, mesh = data_mesh(n_data, args.device)
     evaluator = Evaluator(args.model_dir, subset_fn=args.subset_fn,
                           batch_size=args.batch_size, db_dir=args.db_dir,
                           n_workers=args.n_workers, emd_ang_res=args.emd_ang_res,
                           compute_dtype=args.compute_dtype, emd_mode=args.emd,
-                          device_metrics=args.device_metrics, device=args.device)
+                          device_metrics=args.device_metrics, device=device,
+                          mesh=mesh)
+    primary = mesh is None or mesh.is_primary
     step = evaluator.restored_step
-    print("Restored " + (f"checkpoint step {step}" if step is not None
-                         else "params.npz (no train_state.pt: step unknown)"))
+    if primary:
+        print("Restored " + (f"checkpoint step {step}" if step is not None
+                             else "params.npz (no train_state.pt: step unknown)"))
     summary, results = evaluator.run(output_fn=None)
-    print(f"\nEvaluated {len(results)} samples")
-    for key, value in summary.items():
-        print(f"EVAL | {key}: {value:f}")
-    sys.stdout.flush()
+    if primary:
+        print(f"\nEvaluated {len(results)} samples")
+        for key, value in summary.items():
+            print(f"EVAL | {key}: {value:f}")
+        sys.stdout.flush()
+    return summary, results
 
 
 if __name__ == "__main__":

@@ -25,14 +25,20 @@ deploy/stream.py):
         [--frames_dir d1,d2]
 
 A frames dir is a folder of 10 fps jpgs, or a clip folder packed by
-data/packed.py (its decoded frames), as deploy reads either. --n_data > 1
-(multi-device serving) is parsed and refused with NotImplementedError.
+data/packed.py (its decoded frames), as deploy reads either.
+
+--n_data N (multi-session mode only; the session count must divide by N)
+splits the batcher's lanes over N ranks on this host (one card each on
+CUDA, CPU processes under --device cpu): every rank reads the same inputs
+and keeps the same sessions, runs its block of lanes each tick, and rank 0
+gathers the predictions and writes the wavs.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 import time
 
 import numpy as np
@@ -59,17 +65,32 @@ def parse_arguments(argv=None):
     parser.add_argument("--compute_dtype", default=None,
                         choices=["float32", "bfloat16"])
     parser.add_argument("--n_data", type=int, default=None,
-                        help="Shard the batched tick over N devices (one so far).")
+                        help="Shard the batched tick's lanes over N ranks (one card "
+                             "each on CUDA); multi-session mode only, the session "
+                             "count must divide by N.")
     parser.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda).")
     return parser.parse_args(argv)
 
 
-def refuse_unported(args) -> None:
-    """NotImplementedError for the flags whose paths are not ported yet."""
-    if args.n_data is not None and args.n_data > 1:
-        raise NotImplementedError("--n_data > 1 (multi-device serving) is not ported "
-                                  "yet; see ROADMAP.md, 'Modules to port', item 14b")
+def check_flags(args) -> None:
+    """ValueError for --n_data on single-session serving, or on a session
+    count it does not divide."""
+    n_data = args.n_data or 1
+    n_sessions = len(args.input_wav.split(","))
+    if n_data > 1 and n_sessions == 1:
+        raise ValueError("--n_data shards the multi-session batcher; pass comma-separated "
+                         "inputs (single-session serving runs on one device)")
+    if n_data < 1 or n_sessions % n_data:
+        raise ValueError(f"{n_sessions} sessions must divide over --n_data {n_data}")
+
+
+def rank_main(argv: list, coordinator: str, n_ranks: int, rank: int):
+    """One rank of the --n_data form (parallel.distributed.spawn_local);
+    -> what main returns on this rank."""
+    from spatialaudiogen_tpu_torch.parallel.distributed import run_as_rank
+
+    return run_as_rank(main, argv, coordinator, n_ranks, rank, parse_arguments(argv).device)
 
 
 def _frame_reader(path: str):
@@ -111,15 +132,17 @@ def main(argv=None) -> dict:
     """Serve, write the output wav(s) and print the summary. Returns
     {"served_s", "wall_s", "latency_s"}: FOA seconds written (summed over
     sessions), the wall seconds, and the latency of each push (single
-    session) or tick (batched) that ran a forward."""
+    session) or tick (batched) that ran a forward; on rank 0 under
+    --n_data (None on the other ranks and from the spawning command)."""
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_arguments(argv)
-    refuse_unported(args)
+    check_flags(args)
     inputs = args.input_wav.split(",")
     outputs = args.output_wav.split(",")
     assert len(inputs) == len(outputs), \
         f"{len(inputs)} inputs vs {len(outputs)} outputs"
     if len(inputs) > 1:
-        return _serve_batched(args, inputs, outputs)
+        return _serve_batched(args, argv, inputs, outputs)
 
     from spatialaudiogen_tpu_torch.deploy.stream import StreamingMonoToAmbix
     from spatialaudiogen_tpu_torch.utils.io_audio import save_wav
@@ -175,15 +198,24 @@ def main(argv=None) -> dict:
     return {"served_s": served, "wall_s": wall, "latency_s": lat}
 
 
-def _serve_batched(args, inputs: list, outputs: list) -> dict:
+def _serve_batched(args, argv: list, inputs: list, outputs: list) -> dict | None:
     """N sessions through one StreamBatcher: one batched forward per tick.
     Sessions whose input ends early are flushed and leave their lane; the
-    remaining sessions keep ticking."""
+    remaining sessions keep ticking. Under --n_data every rank runs this
+    loop and rank 0 writes."""
+    from spatialaudiogen_tpu_torch.parallel.distributed import is_distributed, spawn_local
+
+    n_data = args.n_data or 1
+    if n_data > 1 and not is_distributed():
+        return spawn_local("spatialaudiogen_tpu_torch.cli.serve", argv, n_data)
     from spatialaudiogen_tpu_torch.deploy.stream import StreamBatcher
+    from spatialaudiogen_tpu_torch.parallel.mesh import data_mesh
     from spatialaudiogen_tpu_torch.utils.io_audio import save_wav
 
+    device, mesh = data_mesh(n_data, args.device)
     batcher = StreamBatcher(args.model_dir, capacity=len(inputs),
-                            compute_dtype=args.compute_dtype, device=args.device)
+                            compute_dtype=args.compute_dtype, device=device,
+                            mesh=mesh)
     rate = batcher.cfg.audio_rate
     block = batcher.geometry.snd_dur
 
@@ -238,6 +270,8 @@ def _serve_batched(args, inputs: list, outputs: list) -> dict:
         collect(batcher.flush(sid))
 
     wall = time.perf_counter() - t_start
+    if mesh is not None and not mesh.is_primary:
+        return None
     total_served = 0.0
     for i, (sid, out_fn) in enumerate(zip(sids, outputs)):
         assert out_chunks[sid], f"input {inputs[i]} shorter than one window"

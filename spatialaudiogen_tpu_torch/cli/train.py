@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import socket
 import sys
 
 from spatialaudiogen_tpu_torch.config import ENCODERS, FREQ_MASK, NO_SEPARATION
@@ -124,28 +123,11 @@ def check_flags(args) -> int:
     return n_ranks
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-def _rank_main(rank: int, argv: list, port: int, n_ranks: int) -> None:
-    """One rank of the spawn form: the CLI with the multi-process flags."""
-    main(list(argv) + ["--coordinator", f"localhost:{port}", "--n_processes", str(n_ranks),
+def rank_main(argv: list, coordinator: str, n_ranks: int, rank: int) -> None:
+    """One rank of the spawn form (parallel.distributed.spawn_local): the
+    CLI with the multi-process flags."""
+    main(list(argv) + ["--coordinator", coordinator, "--n_processes", str(n_ranks),
                        "--process_id", str(rank)])
-
-
-def spawn_local(argv: list, n_ranks: int) -> None:
-    """Every rank of the run on this host, one process each (started with
-    spawn, so a CUDA rank initialises its own card); raises when a rank
-    exits with an error (torch.multiprocessing terminates the others)."""
-    import torch.multiprocessing as mp
-
-    # by its module's name, also when this file runs as __main__ (python -m)
-    from spatialaudiogen_tpu_torch.cli.train import _rank_main
-    mp.start_processes(_rank_main, args=(argv, _free_port(), n_ranks), nprocs=n_ranks,
-                       join=True, start_method="spawn")
 
 
 def main(argv=None):
@@ -156,7 +138,9 @@ def main(argv=None):
     args = parse_arguments(argv)
     n_ranks = check_flags(args)
     if args.n_processes is None and n_ranks > 1:
-        return spawn_local(argv, n_ranks)
+        from spatialaudiogen_tpu_torch.parallel.distributed import spawn_local
+
+        return spawn_local("spatialaudiogen_tpu_torch.cli.train", argv, n_ranks)
     from spatialaudiogen_tpu_torch.config import TrainConfig
     from spatialaudiogen_tpu_torch.parallel.distributed import initialize, shutdown
     from spatialaudiogen_tpu_torch.train.trainer import Trainer

@@ -32,6 +32,14 @@ the same window gives the same bits on every run: the streaming server
 Host buffers are pinned and the copies are non-blocking: decode runs in a
 background thread and the copy back of a batch's predictions is read two
 batches after it was issued, so the host and the card overlap.
+
+With a mesh (parallel.mesh, n_model = 1: the JAX engine's P('data')
+sharding) every rank reads the same clip into the same batches, uploads
+and runs only its contiguous block of each batch's rows (its sub-span of
+the audio, its offsets and frames), and the predictions come back to rank
+0 in rank order, which alone returns the result. Every BatchNorm takes its
+moments over the data group, so the pad lanes of the last batch reach the
+real ones wherever they sit, as on one card.
 """
 
 from __future__ import annotations
@@ -49,6 +57,12 @@ from spatialaudiogen_tpu_torch.data.readers import SampleReader, VideoFrameReade
 from spatialaudiogen_tpu_torch.models.convert import load_params
 from spatialaudiogen_tpu_torch.models.sptaudiogen import SptAudioGen
 from spatialaudiogen_tpu_torch.ops.dft import deterministic_cudnn
+from spatialaudiogen_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    gather_host_rows,
+    row_block,
+    shard_model,
+)
 from spatialaudiogen_tpu_torch.utils.io_audio import pcm16_exact
 
 DEPLOY_DURATION = 0.1  # deploy.py:49
@@ -123,14 +137,22 @@ class MonoToAmbix:
     Predictions depend slightly on batch composition, because the visual
     encoder's BatchNorm runs on batch statistics (the reference quirk):
     batch_size=10 reproduces the reference's numbers.
+
+    `mesh` (parallel.mesh.Mesh, n_model = 1) shards each batch's rows over
+    the data ranks (module docstring); batch_size must divide over them.
+    deploy() then returns the result on rank 0 and None on the others.
     """
 
     def __init__(self, model_dir: str, batch_size: int = 32, device: str = "cuda",
                  compute_dtype: str | None = None, yuv_frames: bool | None = None,
-                 f16_fetch: bool = True):
+                 f16_fetch: bool = True, mesh=None):
+        if mesh is not None and batch_size % mesh.n_data:
+            raise ValueError(f"batch_size {batch_size} must divide over {mesh.n_data} "
+                             f"data ranks")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but torch.cuda.is_available() is False")
+        self.mesh = mesh if mesh is not None and mesh.data_group is not None else None
         # yuv_frames: ship frames as raw 4:2:0 planes and convert on the
         # device; None = when the native decoder supports the frame dir.
         self.yuv_frames = yuv_frames
@@ -144,8 +166,11 @@ class MonoToAmbix:
         self.geometry = mcfg.geometry
         self.model = SptAudioGen(mcfg, frame_hw=tuple(self.cfg.frame_hw))
         self.model.load_state_dict(load_params(model_dir), strict=True)
+        if self.mesh is not None:
+            shard_model(self.model, self.mesh)
         self.model.to(self.device).eval()
         self._n_out = self.geometry.num_ambi_channels - self.geometry.num_in_channels
+        self._rows = row_block(batch_size, self.mesh)   # this rank's lanes of a batch
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -277,6 +302,47 @@ class MonoToAmbix:
             t = t.pin_memory().to(self.device, non_blocking=True)
         return t
 
+    def _local_span(self, span: np.ndarray, rel: np.ndarray, video_u8):
+        """This rank's part of a batch of the on-device gather: its lanes'
+        offsets, frames and the sub-span their windows cover (offsets made
+        relative to it; pad lanes stay -1). The whole batch without a mesh."""
+        if self.mesh is None:
+            return span, rel, video_u8
+        rel = rel[self._rows]
+        real = rel[rel >= 0]
+        lo = int(real.min()) if real.size else 0
+        hi = (int(real.max()) if real.size else 0) + self.geometry.snd_size
+        rel = np.where(rel >= 0, rel - lo, -1)
+        return (span[lo:hi], rel, None if video_u8 is None
+                else np.ascontiguousarray(video_u8[self._rows]))
+
+    def _copy_back(self, out: torch.Tensor):
+        """Start the copy of a batch's predictions to the host -> (host
+        tensor or None, copy-done event or None). Under NCCL the ranks'
+        blocks are gathered on the card first and only rank 0 copies; under
+        gloo each rank copies its block (_copied gathers them)."""
+        if self.mesh is not None and self.mesh.backend == "nccl":
+            out = all_gather_rows(out, self.mesh)
+            if not self.mesh.is_primary:
+                return None, None
+        if self.device.type != "cuda":
+            return out, None
+        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+        host.copy_(out, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    def _copied(self, host, done) -> torch.Tensor | None:
+        """The whole batch's predictions on the host of rank 0 (None on the
+        other ranks), once the copy _copy_back started has landed. Every
+        rank calls it in the same batch order: under gloo it gathers."""
+        if done is not None:
+            done.synchronize()
+        if self.mesh is not None and self.mesh.backend != "nccl":
+            host = gather_host_rows(host, self.mesh)
+        return host
+
     def _predict_span(self, input_folder: str, start: float, duration: float | None):
         """One sliding pass -> (mono (N, n_in), pred (N, n_out)): flow
         configs through per-window host assembly, the others through the
@@ -333,29 +399,24 @@ class MonoToAmbix:
         pending = deque()   # (n, host tensor, copy-done event): one batch behind
 
         def drain(n, host, done):
-            if done is not None:
-                done.synchronize()
-            preds.append(host[:n].numpy().reshape(n * g.snd_dur, -1))
+            host = self._copied(host, done)
+            if host is not None:
+                preds.append(host[:n].numpy().reshape(n * g.snd_dur, -1))
 
+        rows = self._rows
         for n, audio, video, flow, mono in BackgroundGenerator(
                 self._window_batches(reader), depth=2):
             monos.append(mono)
-            out = self.fwd_windows(audio, video, flow)
-            done = None
-            if self.device.type == "cuda":
-                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                host.copy_(out, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-                out = host
-            pending.append((n, out, done))
+            out = self.fwd_windows(*(None if x is None else np.ascontiguousarray(x[rows])
+                                     for x in (audio, video, flow)))
+            pending.append((n,) + self._copy_back(out))
             if len(pending) > 1:
                 drain(*pending.popleft())
         while pending:
             drain(*pending.popleft())
-        if not preds:
+        if not monos:
             raise ValueError(f"no windows to deploy in {input_folder}")
-        return np.concatenate(monos, 0), np.concatenate(preds, 0)
+        return np.concatenate(monos, 0), np.concatenate(preds, 0) if preds else None
 
     def _predict_span_ondevice(self, input_folder: str, start: float,
                                duration: float | None):
@@ -374,8 +435,9 @@ class MonoToAmbix:
 
         def drain(n, host, done):
             nonlocal pred_fill
-            if done is not None:
-                done.synchronize()
+            host = self._copied(host, done)
+            if host is None:       # not rank 0 of a mesh
+                return
             rows = n * g.snd_dur
             # float16 -> float32 widening fuses into this store
             pred_out[pred_fill: pred_fill + rows] = host[:n].numpy().reshape(rows, -1)
@@ -385,22 +447,18 @@ class MonoToAmbix:
                 self._span_batches(reader, input_folder), depth=2):
             mono_out[mono_fill: mono_fill + mono.shape[0]] = mono
             mono_fill += mono.shape[0]
+            span, rel, video_u8 = self._local_span(span, rel, video_u8)
             out = self.fwd_span(self._upload(span), self._upload(rel),
                                 self._upload(video_u8))
             if self.f16_fetch:
                 out = out.half()
-            done = None
-            if self.device.type == "cuda":
-                host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-                host.copy_(out, non_blocking=True)
-                done = torch.cuda.Event()
-                done.record()
-                out = host
-            pending.append((n, out, done))
+            pending.append((n,) + self._copy_back(out))
             if len(pending) > 2:
                 drain(*pending.popleft())
         while pending:
             drain(*pending.popleft())
+        if pred_fill == 0:         # not rank 0 of a mesh
+            return mono_out, None
         assert mono_fill == pred_fill == total
         return mono_out, pred_out
 
@@ -408,7 +466,8 @@ class MonoToAmbix:
                deploy_duration: float | None = 10.0,
                crossfade: bool = False) -> np.ndarray:
         """(N, n_in + n_out) ambisonics: the input passthrough channels
-        followed by the predicted ones (a complete ACN layout)."""
+        followed by the predicted ones (a complete ACN layout); None on the
+        ranks of a mesh other than rank 0."""
         g = self.geometry
         mono, pred = self._predict_span(input_folder, deploy_start, deploy_duration)
         if crossfade:
@@ -416,6 +475,9 @@ class MonoToAmbix:
             half = DEPLOY_DURATION / 2.0
             mono2, pred2 = self._predict_span(input_folder, deploy_start + half,
                                               deploy_duration)
+        if pred is None:
+            return None
+        if crossfade:
             win = np.hanning(g.snd_dur)[:, None]
             t = min(pred.shape[0], pred2.shape[0] + g.snd_dur // 2)
             h1 = np.tile(win, (pred.shape[0] // g.snd_dur, 1))[:t]

@@ -35,6 +35,7 @@ import torch
 from spatialaudiogen_tpu_torch.config import FLOW, VIDEO
 from spatialaudiogen_tpu_torch.data.readers import raw_frame_indices
 from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix, deterministic_cudnn, video_input
+from spatialaudiogen_tpu_torch.parallel.mesh import gather_rows
 
 FRAMES_FPS = 10.0  # the frames/ layout raw rate (preprocess.py:98-143)
 
@@ -399,14 +400,27 @@ class StreamBatcher:
     reference's batch-statistics BatchNorm quirk couples lanes exactly like
     the batch deploy engine couples windows: batched serving then matches
     MonoToAmbix's batch semantics, NOT N isolated batch-1 streams.
+
+    With a `mesh` (parallel.mesh, n_model = 1) the lanes split over the
+    data ranks in contiguous blocks, as the JAX batcher shards its lane
+    axis: every rank keeps the same sessions and bookkeeping, holds its
+    block of the rolling context on its card, ships only its lanes'
+    chunks, masks and frames each tick, and rank 0 gathers the
+    predictions; tick() and flush() return the chunks on rank 0 and
+    nothing on the others. capacity must divide over the ranks.
     """
 
     def __init__(self, model_dir: str, capacity: int = 16,
                  compute_dtype: str | None = None, f16_fetch: bool = True,
-                 device: str = "cuda"):
+                 device: str = "cuda", mesh=None):
+        if mesh is not None and capacity % mesh.n_data:
+            raise ValueError(f"capacity {capacity} must divide over {mesh.n_data} data "
+                             f"ranks")
         self.engine = MonoToAmbix(model_dir, batch_size=capacity, device=device,
                                   compute_dtype=compute_dtype,
-                                  yuv_frames=False, f16_fetch=f16_fetch)
+                                  yuv_frames=False, f16_fetch=f16_fetch, mesh=mesh)
+        self.mesh = self.engine.mesh
+        self._lanes = self.engine._rows      # this rank's lanes
         self.cfg = self.engine.cfg
         self.geometry = self.engine.geometry
         self.capacity = capacity
@@ -421,13 +435,22 @@ class StreamBatcher:
         self._consumed: dict[int, int] = {}  # absolute sample index shipped
         self._next_sid = 0
         self._free_lanes = list(range(capacity))
-        self._buf = torch.zeros((capacity, self.geometry.snd_size), dtype=torch.float32,
+        n_local = self._lanes.stop - self._lanes.start
+        self._buf = torch.zeros((n_local, self.geometry.snd_size), dtype=torch.float32,
                                 device=self.engine.device)
 
+    def _local_row(self, lane: int) -> int | None:
+        """The row of `lane` in this rank's block, None when another owns it."""
+        lo, hi = self._lanes.start, self._lanes.stop
+        return lane - lo if lo <= lane < hi else None
+
     def _set_lane(self, lane: int, window: np.ndarray):
-        """Copy one (snd_size,) window into its lane's row on the card."""
-        self._buf[lane].copy_(self.engine._upload(
-            np.ascontiguousarray(window, dtype=np.float32)))
+        """Copy one (snd_size,) window into its lane's row on the card (on
+        the rank that owns the lane)."""
+        row = self._local_row(lane)
+        if row is not None:
+            self._buf[row].copy_(self.engine._upload(
+                np.ascontiguousarray(window, dtype=np.float32)))
 
     # --- session management -------------------------------------------
     def add_session(self) -> int:
@@ -447,7 +470,9 @@ class StreamBatcher:
         self._free_lanes.append(lane)
         # zero the stale lane so video-model batch statistics see the same
         # zeros an empty deploy pad lane would contribute
-        self._buf[lane].zero_()
+        row = self._local_row(lane)
+        if row is not None:
+            self._buf[row].zero_()
 
     @property
     def n_sessions(self) -> int:
@@ -462,13 +487,16 @@ class StreamBatcher:
     @torch.no_grad()
     @deterministic_cudnn()
     def _tick_fn(self, chunk: np.ndarray, do_shift: np.ndarray, valid: np.ndarray,
-                 video_u8: torch.Tensor | None) -> np.ndarray:
-        """Roll the emitting lanes by snd_dur and run the batched forward.
+                 video_u8: torch.Tensor | None) -> np.ndarray | None:
+        """Roll the emitting lanes by snd_dur and run the batched forward;
+        -> the (capacity, snd_dur, n_out) predictions on the host of rank 0
+        (None on the other ranks of a mesh).
 
         chunk (C, snd_dur) f32 new samples (zeros for non-shifting lanes);
         do_shift/valid (C,) f32 masks; video_u8 the frames _stage_frames
-        staged, or None. Non-emitting lanes are zeroed into the forward:
-        the batch deploy's pad-lane convention. cuDNN runs deterministic
+        staged, or None; C is this rank's lanes. Non-emitting lanes are
+        zeroed into the forward: the batch deploy's pad-lane convention.
+        cuDNN runs deterministic
         algorithms, as in the deploy forward. The chunk and masks go up
         through engine._upload, which pins a fresh host buffer per call;
         the frames' buffer comes from the same caching host allocator. It
@@ -486,7 +514,9 @@ class StreamBatcher:
         if video_u8 is not None:
             video_u8 = video_u8.to(eng.device, non_blocking=True)
         video = video_input(video_u8, valid_d, dtype)
-        return _fetch(eng.model(audio, video), eng.f16_fetch)
+        out = eng.model(audio, video)
+        host = gather_rows(out.half() if eng.f16_fetch else out, self.mesh)
+        return None if host is None else host.numpy().astype(np.float32)
 
     def _stage_frames(self, lane_frames: dict) -> torch.Tensor:
         """One tick's (capacity, ...) uint8 frames in host memory a copy to
@@ -497,20 +527,21 @@ class StreamBatcher:
         do not emit are zero. The frame form is whatever the sessions push,
         (T, H, W, 3) RGB or (T, H*3/2, W) I420 planes (video_input branches
         on the rank); one batcher must see ONE form (mixed lanes cannot
-        stack)."""
+        stack). Only this rank's lanes are staged."""
         shapes = {f.shape for f in lane_frames.values()}
         assert len(shapes) == 1, f"mixed frame forms across sessions: {shapes}"
-        staging = torch.empty((self.capacity,) + shapes.pop(), dtype=torch.uint8,
+        lanes = range(self._lanes.start, self._lanes.stop)
+        staging = torch.empty((len(lanes),) + shapes.pop(), dtype=torch.uint8,
                               pin_memory=self.engine.device.type == "cuda")
         frames = staging.numpy()
-        for lane in range(self.capacity):
-            frames[lane] = lane_frames.get(lane, 0)
+        for row, lane in enumerate(lanes):
+            frames[row] = lane_frames.get(lane, 0)
         return staging
 
     def tick(self, max_rounds: int | None = None) -> dict:
         """Run batched forwards until no session has a ready window (or
         max_rounds). Returns {sid: [(snd_dur, 1+n_out) chunks...]} for
-        sessions that emitted."""
+        sessions that emitted (rank 0 of a mesh; {} on the others)."""
         g = self.geometry
         out: dict[int, list] = {}
         rounds = 0
@@ -550,7 +581,10 @@ class StreamBatcher:
                 metas.append((sid, lane, s.window_mono(k)))
                 s.advance()
             video_u8 = self._stage_frames(lane_frames) if self._needs_video else None
-            host = self._tick_fn(chunk, do_shift, valid, video_u8)
+            lanes = self._lanes
+            host = self._tick_fn(chunk[lanes], do_shift[lanes], valid[lanes], video_u8)
+            if host is None:      # not rank 0 of a mesh
+                continue
             for sid, lane, mono in metas:
                 chunkout = np.concatenate([mono, host[lane]], axis=1)
                 out.setdefault(sid, []).append(chunkout)

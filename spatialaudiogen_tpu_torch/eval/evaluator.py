@@ -14,6 +14,13 @@ device and truncated on the host (the reference silently drops it), and
 the zero pad lanes stay in the forward, where the visual encoders'
 batch-statistics BatchNorm (bn_batch_stats) sees them; --device_metrics
 and --emd sinkhorn move mel-LSD/envelope and the EMD onto the device.
+
+With a mesh (parallel.mesh, n_model = 1), the JAX Evaluator's batch
+sharding over the data axis: every rank reads the same batches (the
+feeder on one thread, so in one fixed order), runs its contiguous block
+of each batch's rows with the BatchNorm moments and the batch metrics
+over the data group, and rank 0 gathers the per-row results in rank
+order, scores them on its host pool and writes the one file.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from spatialaudiogen_tpu_torch.eval.host_metrics import compute_envelope_dist, c
 from spatialaudiogen_tpu_torch.models.convert import load_params
 from spatialaudiogen_tpu_torch.models.metrics import METRIC_SCALES
 from spatialaudiogen_tpu_torch.models.sptaudiogen import SptAudioGen
+from spatialaudiogen_tpu_torch.parallel.mesh import gather_rows, row_block, shard_model
 from spatialaudiogen_tpu_torch.train.checkpoint import latest_step
 from spatialaudiogen_tpu_torch.train.steps import eval_step
 
@@ -56,7 +64,10 @@ class Evaluator:
     train.checkpoint.save_checkpoint, or from a JAX checkpoint by
     tools/export_torch_weights.py); `restored_step` is the step of
     train_state.pt when the dir has one, else None. Runs on `device`
-    ("cuda" by default; the CPU only when asked)."""
+    ("cuda" by default; the CPU only when asked). `mesh` shards each
+    batch's rows over the data ranks (module docstring): batch_size must
+    divide over them, the feeder runs one thread whatever n_workers says,
+    and run() returns the rows on rank 0 only."""
 
     def __init__(self, model_dir: str, subset_fn: str | None = None,
                  batch_size: int = EVAL_BATCH, db_dir: str | None = None,
@@ -65,9 +76,12 @@ class Evaluator:
                  shard_id: int | None = None, num_shards: int | None = None,
                  emd_mode: str = "exact", device_metrics: bool = False,
                  device: str = "cuda"):
-        if mesh is not None:
-            raise NotImplementedError("a device mesh (multi-device eval) is not ported yet; "
-                                      "see ROADMAP.md, 'Modules to port', item 14b")
+        if mesh is not None and batch_size % mesh.n_data:
+            raise ValueError(f"eval batch {batch_size} must divide over {mesh.n_data} "
+                             f"data ranks")
+        self.mesh = mesh if mesh is not None and mesh.data_group is not None else None
+        if self.mesh is not None:
+            n_workers = 1    # every rank must form the same batches
         if emd_mode not in ("exact", "sinkhorn"):
             raise ValueError(f"emd_mode must be 'exact' or 'sinkhorn', got {emd_mode!r}")
         self.device = torch.device(device)
@@ -121,24 +135,15 @@ class Evaluator:
                 return mel_fn(pred, target), env_fn(pred, target), amp
 
             self._spectral_device_fn = spectral
-        # Fully on-device battery: one packed (B, 22) result per batch.
-        self._battery_device_fn = None
-        if self._emd_device_fn is not None and self._spectral_device_fn is not None:
-
-            def battery(pred, mono, target, layout, stft_d, lsd, mse, snr):
-                d1, d2 = device_emd(pred, mono, target, layout)
-                mel, env, amp = spectral(pred, target)
-                return torch.cat(
-                    [stft_d, lsd, mse, snr, mel, env, d1[:, None], d2[:, None],
-                     amp[0][:, None], amp[1][:, None]], dim=1)
-
-            self._battery_device_fn = battery
 
         self.model = SptAudioGen(self.cfg.model_config(), frame_hw=tuple(self.cfg.frame_hw))
         # params.npz carries the BN batch_stats too; a dir without it
         # raises here, as the JAX Evaluator's "no checkpoint found" does
         self.model.load_state_dict(load_params(model_dir), strict=True)
+        if self.mesh is not None:
+            shard_model(self.model, self.mesh)
         self.model.to(self.device).eval()
+        self._rows = row_block(batch_size, self.mesh)   # this rank's rows of a batch
         self.restored_step = latest_step(model_dir)
 
         # multi-host eval: each process scores a disjoint video shard
@@ -220,31 +225,56 @@ class Evaluator:
     def _device_batch(self, padded: dict):
         """One padded batch through the eval step and the device metrics;
         -> (pred, mono, target, per-sample dict, emd pair, spectral
-        quadruple), numpy on the host (pred/mono/target are None under the
-        fully on-device battery, which fetches only the packed result)."""
-        arrays = {k: torch.from_numpy(v).to(self.device)
+        quadruple), numpy on the host, the whole batch in row order
+        (pred/mono/target are None under the fully on-device battery,
+        which fetches only the per-row metrics). Under a mesh this rank
+        runs its rows and rank 0 gathers; the other ranks get None."""
+        group = None if self.mesh is None else self.mesh.data_group
+        arrays = {k: torch.from_numpy(np.ascontiguousarray(v[self._rows])).to(self.device)
                   for k, v in padded.items() if k != "id"}
-        pred, mono, target, _, per_sample = eval_step(self.model, arrays)
+        pred, mono, target, _, per_sample = eval_step(self.model, arrays, group)
         layout = arrays["audio_mask"]
-        if self._battery_device_fn is not None:
-            pack = self._battery_device_fn(
-                pred, mono, target, layout, per_sample["stft"], per_sample["lsd"],
-                per_sample["mse"], per_sample["snr"]).cpu().numpy()
-            ps = {"stft": pack[:, 0:3], "lsd": pack[:, 3:6],
-                  "mse": pack[:, 6:9], "snr": pack[:, 9:12]}
-            spectral = (pack[:, 12:15], pack[:, 15:18], pack[:, 20], pack[:, 21])
-            none = [None] * self.batch_size
-            return none, none, none, ps, (pack[:, 18], pack[:, 19]), spectral
-        emd = spectral = None
+        emd = spectral = ()
         if self._emd_device_fn is not None:
-            emd = tuple(d.cpu().numpy() for d in self._emd_device_fn(pred, mono, target, layout))
+            emd = self._emd_device_fn(pred, mono, target, layout)
         if self._spectral_device_fn is not None:
             mel, env, amp = self._spectral_device_fn(pred, target)
-            spectral = (mel.cpu().numpy(), env.cpu().numpy(),
-                        amp[0].cpu().numpy(), amp[1].cpu().numpy())
-        pred, mono, target = (x.cpu().numpy() for x in (pred, mono, target))
-        ps = {k: v.cpu().numpy() for k, v in per_sample.items()}
+            spectral = (mel, env, amp[0], amp[1])
+        # every per-row result in one copy back (and one gather)
+        audio = () if emd and spectral else (pred, mono, target)
+        parts = [*audio, *(per_sample[k] for k in ("stft", "lsd", "mse", "snr")),
+                 *emd, *spectral]
+        flat = gather_rows(torch.cat([x.reshape(x.shape[0], -1).float() for x in parts], 1),
+                           self.mesh)
+        if flat is None:       # not rank 0
+            return None
+        out, col = [], 0
+        for x in parts:
+            width = x[0].numel()
+            out.append(flat[:, col: col + width].reshape((-1,) + tuple(x.shape[1:])).numpy())
+            col += width
+        if audio:
+            pred, mono, target = out[:3]
+            out = out[3:]
+        else:
+            pred = mono = target = [None] * self.batch_size
+        ps = dict(zip(("stft", "lsd", "mse", "snr"), out[:4]))
+        emd = tuple(out[4:4 + len(emd)]) or None
+        spectral = tuple(out[4 + len(emd or ()):]) or None
         return pred, mono, target, ps, emd, spectral
+
+    def _run_secondary(self, max_batches: int | None):
+        """run() on a rank of a mesh other than rank 0: its rows of every
+        batch through the device, for rank 0 to gather."""
+        self.feeder.start()
+        try:
+            for it, batch in enumerate(self.feeder.batches()):
+                if max_batches is not None and it >= max_batches:
+                    break
+                self._device_batch(self._pad(batch)[0])
+        finally:
+            self.feeder.stop()
+        return {}, []
 
     def run(self, output_fn: str | None = None, host_threads: int = 8,
             print_every: int = 5, max_batches: int | None = None,
@@ -255,7 +285,11 @@ class Evaluator:
         holding ~100 KB of mono/gt/pred audio, are in flight at once, and
         completed records stream to ``output_fn`` every ``flush_every``
         results, so a crash at sample N loses at most the unflushed tail.
+        Under a mesh every rank must call; rank 0 returns (summary, rows)
+        and writes the file, the others return ({}, []).
         """
+        if self.mesh is not None and not self.mesh.is_primary:
+            return self._run_secondary(max_batches)
         if output_fn is None:
             # sharded runs write one file per shard so that shards never
             # clobber each other's rows on a shared model_dir (cat the

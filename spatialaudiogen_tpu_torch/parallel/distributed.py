@@ -14,11 +14,16 @@ spatialaudiogen_tpu.parallel.distributed).
     process to process, so the group's first rank feeds and broadcasts.
   * `put_like(...)` broadcasts a freshly initialised model's parameters and
     buffers from rank 0, so every rank starts from the same values.
+  * `spawn_local(...)` starts every rank of a run on this host, one process
+    each, for the CLIs' `--n_data`/`--n_model` form: each rank calls its
+    CLI module's `rank_main`, which joins the run (`run_as_rank` for the
+    inference CLIs, which take no multi-process flags).
 """
 
 from __future__ import annotations
 
 import datetime
+import importlib
 import socket
 
 import torch
@@ -49,6 +54,15 @@ def initialize(coordinator: str | None = None, n_processes: int | None = None,
     timeout = datetime.timedelta(seconds=timeout_s)
     dist.init_process_group("gloo", init_method=f"tcp://{coordinator}",
                             world_size=n_processes, rank=process_id, timeout=timeout)
+    return dev
+
+
+def local_device(device) -> torch.device:
+    """`device` with this process's card made explicit ("cuda" -> "cuda:K",
+    the card `initialize` set), so ranks can tell whether they share one."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -100,3 +114,37 @@ def put_like(module: torch.nn.Module) -> torch.nn.Module:
         for t in list(module.parameters()) + list(module.buffers()):
             dist.broadcast(t.data, src=0)
     return module
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _rank_main(rank: int, module: str, argv: list, coordinator: str, n_ranks: int) -> None:
+    importlib.import_module(module).rank_main(argv, coordinator, n_ranks, rank)
+
+
+def spawn_local(module: str, argv: list, n_ranks: int) -> None:
+    """Every rank of a run on this host, one process each (started with
+    spawn, so a CUDA rank initialises its own card), over a free localhost
+    port: rank r calls `module`'s rank_main(argv, "localhost:PORT",
+    n_ranks, r). Raises when a rank exits with an error
+    (torch.multiprocessing terminates the others)."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(_rank_main, args=(module, list(argv), f"localhost:{free_port()}",
+                                         n_ranks),
+                       nprocs=n_ranks, join=True, start_method="spawn")
+
+
+def run_as_rank(main, argv: list, coordinator: str, n_ranks: int, rank: int,
+                device: str):
+    """main(argv) as rank `rank` of `n_ranks`: joins the run through the
+    store at `coordinator`, calls main, and leaves the run."""
+    initialize(coordinator, n_ranks, rank, device)
+    try:
+        return main(argv)
+    finally:
+        shutdown()

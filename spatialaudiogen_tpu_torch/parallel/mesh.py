@@ -16,6 +16,12 @@ grid order (mesh.py:33-38).
     the group, the output gathered; the gather's backward takes this rank's
     slice, since every rank of the group computes the same loss).
 
+Inference (deploy, eval, serving) runs at n_model = 1 as one program over
+the data ranks, as the JAX package's P('data') batch sharding does: every
+rank runs the same host code on the same inputs, uploads and computes its
+contiguous block of rows (`row_block`), and the predictions come back to
+rank 0 in rank order (`gather_rows`), which alone writes.
+
 With one process every group is None and nothing is launched.
 """
 
@@ -27,7 +33,11 @@ import torch
 import torch.distributed as dist
 
 from spatialaudiogen_tpu_torch.models.layers import BatchNorm, Dense
-from spatialaudiogen_tpu_torch.parallel.distributed import collective_backend, is_distributed
+from spatialaudiogen_tpu_torch.parallel.distributed import (
+    collective_backend,
+    is_distributed,
+    local_device,
+)
 
 MIN_TP_WIDTH = 1024
 
@@ -39,6 +49,7 @@ class Mesh:
     rank: int = 0
     data_group: object = None       # None when n_data == 1
     model_group: object = None      # None when n_model == 1
+    backend: str = "gloo"           # of the groups: "nccl" when each rank has its own card
 
     @property
     def data_rank(self) -> int:
@@ -72,7 +83,7 @@ def make_mesh(n_data: int | None = None, n_model: int = 1, device="cpu") -> Mesh
     mesh = Mesh(n_data, n_model, dist.get_rank() if world > 1 else 0)
     if world == 1:
         return mesh
-    backend = collective_backend(device)
+    backend = mesh.backend = collective_backend(device)
     for m in range(n_model):
         ranks = [d * n_model + m for d in range(n_data)]
         group = dist.new_group(ranks, backend=backend)
@@ -84,6 +95,62 @@ def make_mesh(n_data: int | None = None, n_model: int = 1, device="cpu") -> Mesh
         if mesh.rank in ranks and n_model > 1:
             mesh.model_group = group
     return mesh
+
+
+# --- inference: row blocks and the ordered gather ----------------------------
+
+def data_mesh(n_data: int, device: str) -> tuple[str, Mesh | None]:
+    """(this rank's device, the (n_data, 1) mesh) of an inference run over
+    the ranks of this process group; (device, None) at n_data 1."""
+    if n_data <= 1:
+        return device, None
+    device = local_device(device)
+    return str(device), make_mesh(n_data, 1, device)
+
+
+def row_block(n_rows: int, mesh: Mesh | None) -> slice:
+    """This data rank's rows of a global batch of `n_rows`: rank d holds
+    [d*n/N, (d+1)*n/N), as P('data') splits the leading axis; every row
+    without a data group."""
+    if mesh is None or mesh.data_group is None:
+        return slice(0, n_rows)
+    if n_rows % mesh.n_data:
+        raise ValueError(f"{n_rows} rows do not divide over {mesh.n_data} data ranks")
+    per = n_rows // mesh.n_data
+    return slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
+
+
+def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Every data rank's block of `x` (equal shapes) concatenated on axis 0
+    in rank order, on the card of every rank (NCCL)."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.n_data)]
+    dist.all_gather(parts, x, group=mesh.data_group)
+    return torch.cat(parts)
+
+
+def gather_host_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor | None:
+    """Every data rank's host block of `x` (equal shapes) concatenated on
+    axis 0 in rank order on rank 0; None on the other ranks (gloo)."""
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.n_data)] if mesh.is_primary else None
+    dist.gather(x, parts, dst=0, group=mesh.data_group)
+    return torch.cat(parts) if mesh.is_primary else None
+
+
+def gather_rows(x: torch.Tensor, mesh: Mesh | None) -> torch.Tensor | None:
+    """This rank's rows `x` of a global batch -> the whole batch on rank 0's
+    host in rank order, None on the other ranks (x on the host without a
+    data group). Every data rank must call. Under NCCL the blocks are
+    gathered on the card and rank 0 fetches once; under gloo (CPU ranks,
+    or ranks sharing a card) each rank fetches its block and the host
+    arrays are gathered, since gloo's gather of card tensors is partial."""
+    if mesh is None or mesh.data_group is None:
+        return x.cpu()
+    if mesh.backend == "nccl":
+        full = all_gather_rows(x, mesh)
+        return full.cpu() if mesh.is_primary else None
+    return gather_host_rows(x.cpu(), mesh)
 
 
 # --- sharding rules ---------------------------------------------------------

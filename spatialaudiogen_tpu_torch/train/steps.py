@@ -130,7 +130,7 @@ def observe_step(state: TrainState, batch: dict, with_ends: bool = False,
 
 @torch.no_grad()
 @deterministic_cudnn()
-def eval_step(model, batch: dict):
+def eval_step(model, batch: dict, group=None):
     """The eval step (make_eval_step's counterpart): forward with
     train=False and the metric battery of models.metrics, both under the
     model's dft_precision and cuDNN's deterministic algorithms (the U-Net's
@@ -138,12 +138,13 @@ def eval_step(model, batch: dict):
     bit, where the JAX package gives one answer). -> (pred, mono, target,
     metrics, per_sample):
     pred and target (B, snd_dur, n_out), mono (B, snd_dur, n_in), the
-    per-sample metrics (B, n_out)."""
+    per-sample metrics (B, n_out). `group` (a mesh's data group): `batch`
+    is this rank's rows and the batch metrics are the global batch's."""
     cfg = model.cfg
     g = cfg.geometry
     audio_in, video, flow, target, mask = split_batch(batch, g)
     with precision_scope(cfg.dft_precision):
         pred = model(audio_in, video, flow, train=False)
-        metrics, per_sample = evaluation_metrics(pred, target, mask, cfg.audio_rate)
+        metrics, per_sample = evaluation_metrics(pred, target, mask, cfg.audio_rate, group)
     mono = audio_in[:, g.target_ss: g.target_ss + g.snd_dur]
     return pred, mono, target, metrics, per_sample

@@ -327,6 +327,90 @@ def test_reduced_flagship_train_step_card_matches_cpu():
     assert float((g_g - g_c).norm() / g_c.norm()) <= 1e-4
 
 
+def _order2_model_inputs():
+    """The reduced order-2 model (ambi_order=2: n_in = 4; 8 tracks, 64x128
+    frames) on the card, and the spectra and mask its forward hands
+    masked_istft at batch 3, in the layout it hands them (the mask a
+    frame-cropped view)."""
+    import spatialaudiogen_tpu_torch.models.sptaudiogen as sptaudiogen
+
+    cfg = SptAudioGenConfig(ambi_order=2, sep_num_tracks=8, pallas_precision="highest")
+    g = cfg.geometry
+    model = SptAudioGen(cfg, frame_hw=(64, 128)).init_weights(
+        torch.Generator().manual_seed(0)).eval().to("cuda")
+    gen = torch.Generator().manual_seed(2)
+    audio = 0.1 * torch.randn((3, g.snd_size, 4), generator=gen).cuda()
+    video = (torch.rand((3, g.vid_dur, 64, 128, 3), generator=gen) - 0.5).cuda()
+    seen = []
+    original = sptaudiogen.masked_istft
+    sptaudiogen.masked_istft = lambda re, im, mask, *a: seen.append((re, im, mask)) or \
+        original(re, im, mask, *a)
+    try:
+        with torch.no_grad():
+            model(audio, video)
+    finally:
+        sptaudiogen.masked_istft = original
+    return seen[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["highest", "default"])
+def test_kernels_at_n_in_4_on_the_order2_model_layout(precision):
+    """K1 and K2 on the spectra and (cropped, strided) mask the order-2
+    model makes, n_in = 4, against their plain versions at the same
+    precision, with the tolerances of test_kernel_matches_plain and
+    test_bwd_kernel_matches_plain (float32 summation order only)."""
+    _need_card()
+    re, im, mask = _order2_model_inputs()
+    assert re.shape[1] == mask.shape[1] == 4 and not mask.is_contiguous()
+    count = k1.launch_count, k1.bwd_launch_count
+    got = k1.masked_istft(re, im, mask, 4, precision)
+    g = torch.randn(got.shape, generator=torch.Generator(device="cuda").manual_seed(5),
+                    device="cuda")
+    got_bwd = k1.masked_istft_bwd(re, im, mask, g, 4, precision)
+    torch.cuda.synchronize()
+    assert (k1.launch_count, k1.bwd_launch_count) == (count[0] + 1, count[1] + 1)
+    torch.testing.assert_close(got, k1.masked_istft_plain(re, im, mask, 4, precision),
+                               atol=2e-4, rtol=1e-4)
+    for a, w in zip(got_bwd, k1.masked_istft_bwd_plain(re, im, mask, g, 4, precision)):
+        torch.testing.assert_close(a, w, atol=5e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_order2_train_step_card_matches_cpu():
+    """One train step of the reduced order-2 model (9-channel batch, n_in =
+    4 into K1 and K2, pallas_precision="highest") on the card and on the
+    CPU from the same weights: loss and flattened gradient at relative
+    1e-4, as test_reduced_flagship_train_step_card_matches_cpu holds order 1."""
+    _need_card()
+    from spatialaudiogen_tpu_torch.train.lr import make_optimizer
+    from spatialaudiogen_tpu_torch.train.state import TrainState
+    from spatialaudiogen_tpu_torch.train.steps import train_step
+
+    cfg = SptAudioGenConfig(ambi_order=2, sep_num_tracks=8, pallas_precision="highest")
+    g = cfg.geometry
+    gen = torch.Generator().manual_seed(3)
+    batch = {"ambix": 0.1 * torch.randn((3, g.snd_size, 9), generator=gen),
+             "audio_mask": torch.ones((3, 9)),
+             "video": torch.randint(0, 256, (3, 1, 64, 128, 3), generator=gen,
+                                    dtype=torch.uint8)}
+    batch["audio_mask"][1, 4:] = 0.0     # a first-order clip among second-order ones
+    results = {}
+    for dev in ("cpu", "cuda"):
+        model = SptAudioGen(cfg, frame_hw=(64, 128)).init_weights(
+            torch.Generator().manual_seed(0)).to(dev)
+        state = TrainState(model, make_optimizer(model.parameters()))
+        counts = k1.launch_count, k1.bwd_launch_count
+        metrics = train_step(state, {k: v.to(dev) for k, v in batch.items()}, 1e-4)
+        grads = torch.cat([p.grad.flatten().cpu() for p in model.parameters()])
+        results[dev] = float(metrics["total_loss"]), grads
+        if dev == "cuda":
+            assert k1.launch_count == counts[0] + 1 and k1.bwd_launch_count == counts[1] + 1
+    (loss_c, g_c), (loss_g, g_g) = results["cpu"], results["cuda"]
+    assert abs(loss_g - loss_c) <= 1e-4 * abs(loss_c)
+    assert float((g_g - g_c).norm() / g_c.norm()) <= 1e-4
+
+
 def _packed_clip(folder, seconds=2, hw=(64, 128), seed=0):
     """A packed clip (data/packed.py layout) with flow, written with numpy
     only (the card host has no Pillow): PCM16 FOA, u8 frames, flow bytes

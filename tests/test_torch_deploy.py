@@ -190,15 +190,24 @@ def test_flow_config_builds_the_flow_encoder(tmp_path):
     (["--save_video"], "15d"),
     (["--overlay_map"], "15d"),
     (["--VR"], "15d"),
-    (["--n_data", "2"], "14"),
 ])
 def test_cli_refuses_unported_flags(tmp_path, flags, item):
     """The reference's invocation parses (VIDEO, --save_video,
-    --overlay_map, --VR, --n_data); the flags whose paths are not ported
-    raise NotImplementedError naming their ROADMAP item, before any model
-    is loaded."""
+    --overlay_map, --VR); the flags whose paths are not ported raise
+    NotImplementedError naming their ROADMAP item, before any model is
+    loaded."""
     argv = [str(tmp_path / "model"), str(tmp_path / "clip")] + flags + ["--device", "cpu"]
     with pytest.raises(NotImplementedError, match=f"item {item}"):
+        cli_main(argv)
+
+
+def test_cli_refuses_n_data_that_cannot_shard_the_batch(tmp_path):
+    """--n_data runs (tests/test_torch_sharded.py), but as the JAX engine
+    asserts, the batch must divide over the ranks: ValueError before any
+    model is loaded (the model dir does not exist)."""
+    argv = [str(tmp_path / "model"), str(tmp_path / "clip"), "--n_data", "2",
+            "--batch_size", "3", "--device", "cpu"]
+    with pytest.raises(ValueError, match="divide"):
         cli_main(argv)
 
 

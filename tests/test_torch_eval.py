@@ -152,9 +152,15 @@ def test_restore_needs_params(evals, tmp_path):
 
 
 def test_refusals(evals):
+    """A mesh whose data ranks the batch does not divide over (the JAX
+    Evaluator asserts it), an unknown EMD mode, and the card where there
+    is none: each raises before any model loads."""
+    from spatialaudiogen_tpu_torch.parallel.mesh import Mesh
+
     root, model_dir, _ = evals
-    with pytest.raises(NotImplementedError, match="item 14"):
-        Evaluator(model_dir, db_dir=root, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="divide"):
+        Evaluator(model_dir, db_dir=root, batch_size=3,
+                  mesh=Mesh(n_data=2, data_group=object()), device="cpu")
     with pytest.raises(ValueError, match="emd_mode"):
         Evaluator(model_dir, db_dir=root, emd_mode="approx", device="cpu")
     if not torch.cuda.is_available():
@@ -179,8 +185,11 @@ def test_cli_overwrite_guard_covers_shards(tmp_path):
 
 
 def test_cli_refuses_n_data(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli_main([str(tmp_path), "--n_data", "2", "--device", "cpu"])
+    """--n_data runs (tests/test_torch_sharded.py), but the eval batch must
+    divide over the ranks, as the JAX Evaluator asserts: ValueError before
+    any model is loaded or file touched (the model dir is empty)."""
+    with pytest.raises(ValueError, match="divide"):
+        cli_main([str(tmp_path), "--n_data", "2", "--batch_size", "3", "--device", "cpu"])
 
 
 def test_cli_compute_dtype_bfloat16(evals, capsys):

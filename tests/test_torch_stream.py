@@ -575,6 +575,11 @@ def test_serve_cli_batched_matches_library(setup, tmp_path, name):
 
 
 def test_serve_cli_refuses_n_data(setup, tmp_path):
+    """--n_data shards the multi-session batcher (tests/test_torch_sharded.py):
+    on one session, or on a session count it does not divide, it raises
+    ValueError before any model is loaded (the inputs do not exist)."""
     _, models = setup
-    with pytest.raises(NotImplementedError, match="item 14"):
-        serve_main([models["audio"], "in.wav", "out.wav", "--n_data", "2", "--device", "cpu"])
+    for inputs in ("in.wav", "a.wav,b.wav,c.wav"):
+        outputs = inputs.replace("in", "out").replace(".wav", "_out.wav")
+        with pytest.raises(ValueError, match="n_data"):
+            serve_main([models["audio"], inputs, outputs, "--n_data", "2", "--device", "cpu"])
