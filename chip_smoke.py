@@ -10,7 +10,8 @@ entry points, deploy, training, eval and serving, in its three
 configurations (the default NCHW U-Net in float32, the NHWC-mask U-Net,
 bf16 compute), then
 the reference's default model (audio + flow + video encoders) the same
-way, and fails (non-zero exit) on the first phase that goes wrong:
+way, and the flow ETL's solver on the card (phase 17), and fails
+(non-zero exit) on the first phase that goes wrong:
 
   1. preconditions: a CUDA card, its name and power limit, torch/CUDA/nvcc;
   2. build: the kernels (K1, the fused masked comb-ISTFT; K2, its fused
@@ -114,7 +115,19 @@ way, and fails (non-zero exit) on the first phase that goes wrong:
      through bit for bit), the card against the CPU at "highest" (<=
      1e-4), an Evaluator pass (K1 once per batch), and the order-2
      forward and train step timed at batch 32. Phase 3 also holds K1 and
-     K2 at n_in = 4 ("order 2" cases, flagship shapes).
+     K2 at n_in = 4 ("order 2" cases, flagship shapes);
+ 17. flow: the flow ETL's Horn-Schunck solver (ops/flow.py, plain PyTorch;
+     the JAX module holds no Pallas kernel) on the card at 224x448 with
+     the JAX defaults and pair_batch 16, over 33 frames of a natural
+     texture under zoom + pan with a moving blob, fb_occlusion off and
+     on: within 1e-3 px of the port's CPU run of the same frames, zoom +
+     pan end-point error under 0.15 px, pairs/s (median of 3 warm runs),
+     CUDA launches per pair-batch and the profile's busy share; then the
+     default model (audio + flow + video) deploys over a packed clip whose
+     flow maps are the card's flow encoded by etl.preprocess.flow_frame_rgb
+     (finite, W passed through, K1 launched). The mux and the ETL's
+     ffmpeg and jpg steps do not run on the card's host, which has
+     neither ffmpeg nor Pillow.
 
 Phase 10 also times the batch-128 train steps with cuDNN's deterministic
 algorithms, and phase 12 checks that five eval steps of one batch give
@@ -132,8 +145,8 @@ the NHWC forward and train step, the f32, bf16 and default-model
 trainings, the default model's deploy, each cli.eval run, the f32 serve
 stream, the serve batcher's ticks, each rank's cli.train and the
 TensorBoard cli.train of phase 14, each rank's and each one process's CLI
-of phase 15, phase 16's cli.train, deploy and eval) and read just after
-it. Everything else runs the model's default pallas_precision, "default"
+of phase 15, phase 16's cli.train, deploy and eval, phase 17's deploy) and
+read just after it. Everything else runs the model's default pallas_precision, "default"
 (K1, K2 and K3 on bf16), except phases 14 and 15's runs ("highest"). The second-to-last line is a JSON object describing the
 kernels (top-level times the bf16 route's, the 3xTF32 route's under
 "highest"; K1's and K2's launches are those of the f32 training, K3's
@@ -147,7 +160,8 @@ its batch-1 times under "serve_batch1"; K1's and K2's per rank in phase
 "multi_device_launches"; K1's per rank in phase 15's sharded deploy, eval
 and serve under "sharded_launches", and K1's and K2's in phase 16's
 order-2 training (K1's also in its deploy and eval) under
-"order2_launches"; "shapes" names every shape a
+"order2_launches", and K1's in phase 17's deploy over the card-made flow
+maps under "flow_deploy_launches"; "shapes" names every shape a
 kernel was held to its plain version at, with its bf16-route times); the
 last is
 {"ok": true, "device": {...}}. Without a CUDA card the
@@ -786,8 +800,10 @@ KERNEL_FAMILIES = (  # (family, substrings of the kernel name), first match wins
 )
 
 
-def profile_step(step_fn, card: str, what: str) -> None:
-    """Device time of one call of step_fn by kernel family (torch.profiler)."""
+def profile_step(step_fn, card: str, what: str) -> tuple | None:
+    """Device time of one call of step_fn by kernel family (torch.profiler);
+    -> (device kernels launched, busy ms, wall ms), None if the profiler
+    recorded no device kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -799,7 +815,7 @@ def profile_step(step_fn, card: str, what: str) -> None:
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         log(f"{what} profile: torch.profiler recorded no device kernels; not measured")
-        return
+        return None
     totals: dict = {}
     by_name: dict = {}
     for e in kernels:
@@ -815,6 +831,7 @@ def profile_step(step_fn, card: str, what: str) -> None:
         top_ms, top = max((t, name) for (fam, name), t in by_name.items() if fam == family)
         log(f"  {family:24s} {ms:9.3f} ms  {100 * ms / busy:5.1f}%   largest "
             f"{top_ms:.3f} ms {top[:90]}")
+    return len(kernels), busy, wall_ms
 
 
 # ---------------------------------------------------------------------------
@@ -2519,6 +2536,205 @@ def order2_phase(card: str) -> dict:
             "bwd_launches": {"train": launches[1]}}
 
 
+# ---------------------------------------------------------------------------
+# 17. flow: Horn-Schunck on the card, and the default model over its maps
+# ---------------------------------------------------------------------------
+
+FLOW_FRAMES = 33            # 32 pairs: two pair-batches of 16
+FLOW_PAIR_BATCH = 16
+FLOW_ZOOM, FLOW_PAN = 1.004, (1.5, -0.8)   # per frame, about the frame's centre
+FLOW_BLOB_FROM = 16         # frames 16.. carry a blob moving FLOW_BLOB_STEP px in x
+FLOW_BLOB_STEP = 3.0
+FLOW_PURE_PAIRS = 15        # pairs 0-14: zoom + pan only (pair 15 sees the blob appear)
+FLOW_MARGIN = 12            # px left out at the frame's edges, as the CPU tests do
+FLOW_EPE_LIMIT = 0.15       # px: the bound tests/test_flow_quality.py holds JAX to
+# px, max abs, card against the port's CPU run: on the CPU the float32 solve
+# of these frames is 1.4e-4 px (fb_occlusion off) and 6.1e-5 px (on) from a
+# float64 run at most (tools/flow_cpu_reference.py), so two float32 devices
+# should part by about as much
+FLOW_CARD_CPU_ATOL = 1e-3
+FLOW_RUNS = 3               # warm timed runs per mode
+FLOW_DEPLOY_SECONDS = 2.0
+
+
+def natural_texture(h: int, w: int, rng) -> np.ndarray:
+    """1/f-like texture in [0, 1] (tests/test_flow_quality.py's recipe)."""
+    from scipy.ndimage import gaussian_filter
+
+    img = np.zeros((h, w))
+    for sigma, amp in ((1.0, 0.25), (3.0, 0.5), (9.0, 1.0)):
+        img += amp * gaussian_filter(rng.randn(h, w), sigma)
+    img -= img.min()
+    return img / img.max()
+
+
+def flow_frames() -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """FLOW_FRAMES uint8 gray-as-RGB frames at FRAME_HW, from SEED with numpy
+    and scipy: a natural texture under a zoom + pan (frame k+1 is frame k
+    through one affine map A, rendered from a texture wider than the frame
+    so that no edge is smeared in), and from frame FLOW_BLOB_FROM on a
+    textured blob moving FLOW_BLOB_STEP px in x over it. Returns (frames,
+    the background's true flow (H, W, 2), which every pair shares, the
+    blob's mask per frame (T, H, W))."""
+    from scipy.ndimage import gaussian_filter, map_coordinates
+
+    rng = np.random.RandomState(SEED + 17)
+    h, w = FRAME_HW
+    pad = 64
+    big = natural_texture(h + 2 * pad, w + 2 * pad, rng)
+    fg = gaussian_filter(rng.rand(h, w), 1.5)
+    fg = (fg - fg.min()) / (fg.max() - fg.min())
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+    tx, ty = FLOW_PAN
+    frames = np.empty((FLOW_FRAMES, h, w, 3), np.uint8)
+    masks = np.zeros((FLOW_FRAMES, h, w))
+    for k in range(FLOW_FRAMES):
+        # A^k(q) = c + s^k (q - c) + t (1 + s + ... + s^(k-1))
+        zoom = FLOW_ZOOM ** k
+        drift = sum(FLOW_ZOOM ** i for i in range(k))
+        img = map_coordinates(big, [pad + cy + zoom * (ys - cy) + ty * drift,
+                                    pad + cx + zoom * (xs - cx) + tx * drift],
+                              order=3, mode="nearest")
+        if k >= FLOW_BLOB_FROM:
+            shift = FLOW_BLOB_STEP * (k - FLOW_BLOB_FROM)
+            masks[k] = np.exp(-(((xs - w / 3 - shift) ** 2 + (ys - cy) ** 2) / 300.0))
+            moved = map_coordinates(fg, [ys, xs - shift], order=3, mode="nearest")
+            img = img * (1 - masks[k]) + moved * masks[k]
+        frames[k] = np.clip(img * 255, 0, 255).astype(np.uint8)[..., None]
+    # flow(p) = A^{-1}(p) - p, so that frame_k(p) ~ frame_k+1(p + flow(p))
+    gt = np.stack([(xs - tx - cx) / FLOW_ZOOM + cx - xs,
+                   (ys - ty - cy) / FLOW_ZOOM + cy - ys], axis=-1)
+    return frames, gt.astype(np.float32), masks
+
+
+def flow_quality(flow: np.ndarray, gt: np.ndarray, masks: np.ndarray) -> dict:
+    """Mean end-point error over the zoom + pan pairs' interior, and the
+    blob pairs' mean x-flow on the blob (true FLOW_BLOB_STEP) and off it."""
+    m = FLOW_MARGIN
+    d = flow[:FLOW_PURE_PAIRS, m:-m, m:-m] - gt[None, m:-m, m:-m]
+    blob = range(FLOW_BLOB_FROM, FLOW_FRAMES - 1)
+    on = np.concatenate([flow[k, ..., 0][masks[k] > 0.5] for k in blob])
+    off = np.concatenate([flow[k, m:-m, m:-m, 0][masks[k][m:-m, m:-m] < 0.05] for k in blob])
+    return {"epe": float(np.sqrt((d ** 2).sum(-1)).mean()), "blob_u": float(on.mean()),
+            "background_u": float(off.mean()),
+            "background_true_u": float(gt[m:-m, m:-m, 0].mean())}
+
+
+def flow_phase(card: str) -> dict:
+    """The port's flow ETL on the card (ops/flow.py, plain PyTorch: the JAX
+    module has no Pallas kernel), then the reference's default model over
+    the card-made flow maps.
+
+    horn_schunck_flow at the ETL's own frame size (224x448) and the JAX
+    defaults (alpha 0.05, 3 warps, 60 Jacobi steps at the coarsest of 4
+    levels, pair_batch 16) over FLOW_FRAMES frames (flow_frames), with
+    fb_occlusion off and on: the card's flow within FLOW_CARD_CPU_ATOL px
+    (max abs) of the port's own CPU run of the same frames, the mean
+    end-point error of the zoom + pan pairs under FLOW_EPE_LIMIT px, the
+    blob's and background's mean x-flow printed beside their truth; pairs
+    per second as the median of FLOW_RUNS warm runs (host gray conversion
+    and copies included), and one pair-batch's CUDA launches and busy /
+    wall share from a profile. Then the card's flow (fb_occlusion off) is
+    encoded with etl.preprocess.flow_frame_rgb into a packed clip's
+    flow.npy + flow_lims.npy, and MonoToAmbix deploys the default model
+    (audio + flow + video, random weights from SEED) over
+    FLOW_DEPLOY_SECONDS of it: finite, W passed through bit for bit, K1
+    launched. The mux and the ETL's ffmpeg and jpg steps do not run here:
+    the card's host has neither ffmpeg nor Pillow (the CPU tests drive
+    them through a stub ffmpeg and dry runs). Returns K1's launches in
+    that deploy."""
+    from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix
+    from spatialaudiogen_tpu_torch.etl.preprocess import flow_frame_rgb
+    from spatialaudiogen_tpu_torch.ops import masked_istft as k
+    from spatialaudiogen_tpu_torch.ops.flow import flow_pairs, horn_schunck_flow
+
+    frames, gt, masks = flow_frames()
+    n_pairs = FLOW_FRAMES - 1
+    card_flow = {}
+    for fb in (False, True):
+        what = f"flow fb_occlusion={'on' if fb else 'off'}"
+        flow = horn_schunck_flow(frames, pair_batch=FLOW_PAIR_BATCH, fb_occlusion=fb,
+                                 device=DEVICE)
+        seconds = []
+        for _ in range(FLOW_RUNS):
+            t0 = time.perf_counter()
+            again = horn_schunck_flow(frames, pair_batch=FLOW_PAIR_BATCH, fb_occlusion=fb,
+                                      device=DEVICE)
+            seconds.append(time.perf_counter() - t0)
+        wall = float(np.median(seconds))
+        q = flow_quality(flow, gt, masks)
+        log(f"{what} ({FRAME_HW[0]}x{FRAME_HW[1]}, pair_batch {FLOW_PAIR_BATCH}, {n_pairs} "
+            f"pairs): median of {FLOW_RUNS} warm runs {wall:.3f} s -> {n_pairs / wall:.1f} pairs/s "
+            f"(runs {', '.join(f'{x:.3f}' for x in seconds)}; the runs bitwise equal: "
+            f"{np.array_equal(flow, again)}) [{card}]")
+        log(f"{what}: zoom + pan EPE {q['epe']:.4f} px over pairs 0-{FLOW_PURE_PAIRS - 1} "
+            f"(limit {FLOW_EPE_LIMIT}); blob pairs: blob mean u {q['blob_u']:.3f} px (true "
+            f"{FLOW_BLOB_STEP}), background {q['background_u']:.3f} (true "
+            f"{q['background_true_u']:.3f})")
+        if not (flow.shape == (FLOW_FRAMES,) + FRAME_HW + (2,) and np.isfinite(flow).all()):
+            raise AssertionError(f"{what}: shape {flow.shape} or non-finite values")
+        if not q["epe"] < FLOW_EPE_LIMIT:
+            raise AssertionError(f"{what}: EPE {q['epe']:.4f} px")
+
+        t0 = time.perf_counter()
+        cpu = horn_schunck_flow(frames, pair_batch=FLOW_PAIR_BATCH, fb_occlusion=fb,
+                                device="cpu")
+        cpu_s = time.perf_counter() - t0
+        err = float(np.abs(cpu - flow).max())
+        log(f"{what}: card vs the port's CPU run of the same frames ({cpu_s:.1f} s on "
+            f"{torch.get_num_threads()} threads): max |diff| {err:.3e} px (limit "
+            f"{FLOW_CARD_CPU_ATOL})")
+        if not err <= FLOW_CARD_CPU_ATOL:
+            raise AssertionError(f"{what}: card and CPU {err:.3e} px apart")
+
+        gray = (frames[:FLOW_PAIR_BATCH + 1].astype(np.float32)
+                @ np.array([0.299, 0.587, 0.114], np.float32)) / 255.0
+        i1 = torch.from_numpy(gray[:-1]).to(DEVICE)
+        i2 = torch.from_numpy(gray[1:]).to(DEVICE)
+        with torch.inference_mode():
+            ms = time_ms(lambda: flow_pairs(i1, i2, fb_occlusion=fb), warmup=1, iters=3)
+            prof = profile_step(lambda: flow_pairs(i1, i2, fb_occlusion=fb), card,
+                                f"{what} one pair-batch")
+        log(f"{what}: one pair-batch of {FLOW_PAIR_BATCH} on the card {ms:.2f} ms (CUDA "
+            f"events, tensors already there), "
+            + (f"{prof[0]} CUDA launches, busy {100 * prof[1] / prof[2]:.0f}% of the "
+               f"profiled wall" if prof else "launches not measured") + f" [{card}]")
+        card_flow[fb] = flow
+        del i1, i2
+        torch.cuda.empty_cache()
+
+    clip, model_dir = SCRATCH / "flow_clip", SCRATCH / "flow_model"
+    seconds = (FLOW_FRAMES - 1) // 10
+    audio = write_clip(clip, seconds=seconds)
+    n = seconds * 10
+    encoded = [flow_frame_rgb(f) for f in card_flow[False][:n]]
+    np.save(clip / "packed" / "video.npy", frames[:n])
+    np.save(clip / "packed" / "flow.npy", np.stack([rgb for rgb, _ in encoded]))
+    np.save(clip / "packed" / "flow_lims.npy",
+            np.array([lims for _, lims in encoded], np.float32))
+    write_model_dir(model_dir, DEFAULT_ENCODERS)
+    engine = MonoToAmbix(str(model_dir), batch_size=DEFAULT_DEPLOY_BATCH, device=DEVICE)
+    k.launch_count = k.bwd_launch_count = k.nhwc_launch_count = 0
+    ambi = engine.deploy(str(clip), deploy_start=DEPLOY_START,
+                         deploy_duration=FLOW_DEPLOY_SECONDS)
+    launched = (k.launch_count, k.bwd_launch_count, k.nhwc_launch_count)
+    s0, n_out = int(DEPLOY_START * RATE), int(round(FLOW_DEPLOY_SECONDS * RATE))
+    w_in = audio[s0: s0 + n_out, 0].astype(np.float32) / 32768.0
+    log(f"default model (audio flow video) deploy over the card-made flow maps "
+        f"({FLOW_DEPLOY_SECONDS} s at batch {DEFAULT_DEPLOY_BATCH}): shape {ambi.shape}, "
+        f"K1/K2/K3 launches {launched[0]}/{launched[1]}/{launched[2]}")
+    if ambi.shape != (n_out, 4) or not np.isfinite(ambi).all():
+        raise AssertionError(f"deploy over the card's flow: shape {ambi.shape}")
+    if not np.array_equal(ambi[:, 0], w_in):
+        raise AssertionError("deploy over the card's flow: W is not the input bit for bit")
+    if launched[0] < 1 or launched[1:] != (0, 0):
+        raise AssertionError(f"deploy over the card's flow launched K1/K2/K3 {launched}")
+    del engine
+    torch.cuda.empty_cache()
+    return {"launches": launched[0]}
+
+
 def phase(fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -2584,6 +2800,7 @@ def main() -> int:
         multi = phase(multi_device_phase, card)
         sharded = phase(sharded_inference_runs, card)
         order2 = phase(order2_phase, card)
+        flow = phase(flow_phase, card)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     # The top-level numbers are the "default" (bf16) route's, the one the
@@ -2603,7 +2820,8 @@ def main() -> int:
               "multi_device_launches": {what: [r[0] for r in ranks] if what != "tb"
                                         else ranks[0] for what, ranks in multi.items()},
               "sharded_launches": sharded,
-              "order2_launches": order2["launches"]}, ()),
+              "order2_launches": order2["launches"],
+              "flow_deploy_launches": flow["launches"]}, ()),
             ("masked_istft_bwd", "masked_istft_bwd.cu", K2_REPLACES, k2_times,
              {"launches": train["bwd_launches"],
               "default_model_launches": default["bwd_launches"],

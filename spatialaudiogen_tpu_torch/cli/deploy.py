@@ -3,18 +3,22 @@ plus --device.
 
     python -m spatialaudiogen_tpu_torch.cli.deploy MODEL_DIR INPUT_FOLDER [VIDEO] \
         [--deploy_start 0] [--deploy_duration 10] [--output_fn out] \
-        [--save_ambix] [--batch_size 32] [--crossfade] [--device cuda]
+        [--save_ambix] [--save_video] [--overlay_map] [--VR] \
+        [--batch_size 32] [--crossfade] [--device cuda]
 
 MODEL_DIR holds train-params.json and params.npz (export a JAX model dir
-with tools/export_torch_weights.py). The reference's video outputs (VIDEO,
---save_video, --overlay_map, --VR) are parsed and refused with
-NotImplementedError until their paths are ported.
+with tools/export_torch_weights.py). --save_video muxes the predicted
+ambisonics with VIDEO (trimmed to the deployed span by ffmpeg) through
+deploy.mux.gen_360video, as the JAX CLI does: a binaural W+-Y stereo mp4,
+or with --VR the ambisonics with SA3D and spherical-video metadata;
+--overlay_map blends the spherical power map over the frames. ffmpeg must
+be on PATH for it.
 
 --n_data N shards each window batch over N ranks on this host (one card
 each on CUDA, CPU processes under --device cpu; ranks that share a card
 run their collectives over gloo): each rank runs its block of every
-batch's rows, and rank 0 gathers the predictions and writes the wav.
---batch_size must divide by N.
+batch's rows, and rank 0 gathers the predictions and writes the wav and
+the video. --batch_size must divide by N.
 
     python -m spatialaudiogen_tpu_torch.cli.deploy MODEL_DIR INPUT_FOLDER \
         --save_ambix --output_fn out --n_data 2
@@ -60,16 +64,11 @@ def parse_arguments(argv=None):
     return args
 
 
-def refuse_unported(args) -> None:
-    """NotImplementedError for the flags whose paths are not ported yet, and
-    ValueError for --n_data that cannot shard --batch_size."""
-    later = "is not ported yet; see ROADMAP.md, 'Modules to port', item"
-    for flag, on in (("the VIDEO argument", bool(args.video)),
-                     ("--save_video", args.save_video), ("--overlay_map", args.overlay_map),
-                     ("--VR", args.VR)):
-        if on:
-            raise NotImplementedError(f"{flag} (video output) {later} 15d (pass "
-                                      f"--save_ambix for the ambisonics wav)")
+def check_arguments(args) -> None:
+    """ValueError, before any model is loaded, for --save_video without
+    VIDEO and for --n_data that cannot shard --batch_size."""
+    if args.save_video and not args.video:
+        raise ValueError("--save_video requires the VIDEO argument")
     if args.n_data < 1 or args.batch_size % args.n_data:
         raise ValueError(f"--batch_size {args.batch_size} must divide over --n_data "
                          f"{args.n_data}")
@@ -88,7 +87,7 @@ def main(argv=None):
     ranks, and from the command that spawned the ranks of --n_data)."""
     argv = sys.argv[1:] if argv is None else list(argv)
     args = parse_arguments(argv)
-    refuse_unported(args)
+    check_arguments(args)
     from spatialaudiogen_tpu_torch.parallel.distributed import is_distributed, spawn_local
 
     if args.n_data > 1 and not is_distributed():
@@ -113,7 +112,36 @@ def main(argv=None):
         out = args.output_fn if args.output_fn.endswith(".wav") else args.output_fn + ".wav"
         save_wav(out, ambi, model.cfg.audio_rate)
         print(f"Saved ambisonics wav: {out}")
+    if args.save_video:
+        save_video(args, ambi, model.cfg.audio_rate, model.cfg.ambi_order)
     return ambi
+
+
+def save_video(args, ambi, rate: int, ambi_order: int) -> None:
+    """The JAX CLI's video output: trim VIDEO to the deployed span with
+    ffmpeg, then mux it with the ambisonics (deploy.mux.gen_360video);
+    the temporaries are removed. A --deploy_duration of 0 (the whole clip)
+    trims no end, where the JAX CLI passes ffmpeg "-t None"."""
+    import os
+    import tempfile
+
+    from spatialaudiogen_tpu_torch.deploy.mux import _run, gen_360video
+    from spatialaudiogen_tpu_torch.utils.io_audio import save_wav
+
+    tmp_ambix = tempfile.mktemp(prefix="sag_", suffix=".wav")
+    tmp_video = tempfile.mktemp(prefix="sag_", suffix=".mp4")
+    save_wav(tmp_ambix, ambi, rate)
+    try:
+        span = [] if args.deploy_duration is None else ["-t", str(args.deploy_duration)]
+        _run(["ffmpeg", "-y", "-ss", str(args.deploy_start), "-i", args.video] + span
+             + [tmp_video], False, [])
+        gen_360video(tmp_ambix, tmp_video, args.output_fn, overlay_map=args.overlay_map,
+                     inject_meta=args.VR, binauralize=not args.VR, ambi_order=ambi_order)
+    finally:
+        for fn in (tmp_ambix, tmp_video):
+            if os.path.exists(fn):
+                os.remove(fn)
+    print(f"Saved video: {args.output_fn}")
 
 
 if __name__ == "__main__":

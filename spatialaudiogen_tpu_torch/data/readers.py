@@ -1,6 +1,6 @@
 """Per-video multimodal chunk readers over the preprocessed frames layout
-(the port's copy of spatialaudiogen_tpu.data.readers; flow readers are not
-ported yet, so return_flow=True raises NotImplementedError).
+(the port's copy of spatialaudiogen_tpu.data.readers, flow readers
+included: FlowFrameReader decodes the flow jpgs or the packed flow.npy).
 
 On-disk layout (produced by etl.preprocess / data.synthetic, identical to the
 reference's data/frames tree, README.md:81-96):

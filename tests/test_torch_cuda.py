@@ -609,3 +609,25 @@ def test_stream_batcher_card_matches_cpu(tmp_path):
         np.testing.assert_array_equal(card[:, 0], cpu[:, 0])
         err = float(np.linalg.norm(card[:, 1:] - cpu[:, 1:]) / np.linalg.norm(cpu[:, 1:]))
         assert err <= 1e-4, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fb_occlusion", [False, True], ids=["fb-off", "fb-on"])
+def test_flow_pairs_card_matches_cpu(fb_occlusion):
+    """ops/flow.py's Horn-Schunck on the card against the same solve on the
+    CPU at 48x96 (2 warps, 16 Jacobi steps): within 1e-4 px max abs, as
+    the CPU tests hold the port to JAX (the float32 solve there is about
+    1e-5 px from float64)."""
+    import numpy as np
+
+    from spatialaudiogen_tpu_torch.ops.flow import flow_pairs
+
+    _need_card()
+    gen = torch.Generator().manual_seed(0)
+    base = torch.nn.functional.avg_pool2d(torch.rand((3, 1, 56, 104), generator=gen), 9, 1)[:, 0]
+    i1, i2 = base, torch.roll(base, (1, 2), dims=(1, 2))
+    out = {dev: flow_pairs(i1.to(dev), i2.to(dev), n_warps=2, n_iters=16,
+                           fb_occlusion=fb_occlusion).cpu().numpy() for dev in ("cpu", "cuda")}
+    assert out["cuda"].shape == (3, 48, 96, 2) and np.isfinite(out["cuda"]).all()
+    assert np.abs(out["cuda"] - out["cpu"]).max() <= 1e-4
+    assert abs(float(np.median(out["cuda"][:, 12:-12, 12:-12, 0])) - 2.0) < 0.3

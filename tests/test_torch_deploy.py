@@ -185,20 +185,136 @@ def test_flow_config_builds_the_flow_encoder(tmp_path):
                        model.state_dict()["flow_encoder.conv1.conv.weight"])
 
 
-@pytest.mark.parametrize("flags, item", [
-    (["video.mp4"], "15d"),
-    (["--save_video"], "15d"),
-    (["--overlay_map"], "15d"),
-    (["--VR"], "15d"),
-])
-def test_cli_refuses_unported_flags(tmp_path, flags, item):
-    """The reference's invocation parses (VIDEO, --save_video,
-    --overlay_map, --VR); the flags whose paths are not ported raise
-    NotImplementedError naming their ROADMAP item, before any model is
-    loaded."""
-    argv = [str(tmp_path / "model"), str(tmp_path / "clip")] + flags + ["--device", "cpu"]
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        cli_main(argv)
+VIDEO_CASES = {                       # the flags after VIDEO
+    "video": [],                     # VIDEO alone: deploy, no video written
+    "save_video": ["--save_video"],  # binaural W+-Y stereo mp4
+    "overlay_map": ["--save_video", "--overlay_map"],
+    "VR": ["--save_video", "--VR"],  # ambisonics + SA3D + spherical video
+}
+
+
+@pytest.fixture(scope="module")
+def source_video(tmp_path_factory):
+    """A 1 s, 30 fps mp4 that cv2 reads (written with cv2)."""
+    from spatialaudiogen_tpu_torch.utils.io_video import VideoWriter
+
+    fn = str(tmp_path_factory.mktemp("source_video") / "video.mp4")
+    writer = VideoWriter(fn, fps=30)
+    ys, xs = np.mgrid[0:FRAME_HW[0], 0:FRAME_HW[1]]
+    for i in range(30):
+        frame = np.stack([(xs * 2 + i * 4) % 256, (ys * 3) % 256, np.full_like(xs, 90)], -1)
+        writer.write_frame(frame.astype(np.uint8))
+    writer.close()
+    return fn
+
+
+class _JaxEngineStandIn:
+    """Takes the JAX MonoToAmbix's place under the JAX cli.deploy: it returns
+    the port's prediction, so both CLIs' video paths get one input."""
+
+    def __init__(self, ambi, cfg):
+        self.ambi, self.cfg, self.restored_step = ambi, cfg, 0
+
+    def deploy(self, *args, **kwargs):
+        return self.ambi
+
+
+def _video_frames(fn) -> np.ndarray:
+    import cv2
+
+    cap = cv2.VideoCapture(fn)
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    cap.release()
+    return np.stack(frames) if frames else np.zeros((0,))
+
+
+@pytest.mark.parametrize("case", list(VIDEO_CASES))
+def test_cli_video_outputs_match_jax(setup, source_video, tmp_path, monkeypatch, case):
+    """The reference's invocation (VIDEO, --save_video, --overlay_map, --VR)
+    runs through the mux, as the JAX CLI does: with a stub ffmpeg first on
+    PATH (tests/ffmpeg_stub.py: it records its argv and copies or writes
+    its output), the port's cli.deploy on the CPU and the JAX cli.deploy
+    (its engine replaced by the port's prediction) run the same ffmpeg
+    commands, mux the same audio (the W+-Y stereo, or the ambisonics under
+    --VR) and the same frames (the power-map overlay, written with cv2),
+    and write the same file (SA3D and spherical metadata under --VR); the
+    trimmed video and the wav are removed. VIDEO alone writes no video."""
+    import ffmpeg_stub
+
+    from spatialaudiogen_tpu.cli import deploy as jax_cli
+    from spatialaudiogen_tpu.deploy import deploy as jax_deploy
+    from spatialaudiogen_tpu.utils import jax_setup
+    from spatialaudiogen_tpu_torch.deploy.mux import binauralize_stereo
+    from spatialaudiogen_tpu_torch.deploy.sa3d import SPHERICAL_UUID, parse_top_level
+
+    model_dir, clip = setup[:2]
+    monkeypatch.setattr(jax_setup, "enable_compile_cache", lambda *a, **k: None)
+    path = os.environ["PATH"]
+    runs = {}
+    for who in ("port", "jax"):
+        stub = ffmpeg_stub.install(tmp_path / who / "bin")
+        monkeypatch.setenv("PATH", stub + os.pathsep + path)
+        out = str(tmp_path / who / "out.mp4")
+        argv = [model_dir, clip, source_video] + VIDEO_CASES[case] + [
+            "--output_fn", out, "--deploy_start", str(START), "--deploy_duration",
+            str(DURATION), "--batch_size", str(BATCH)]
+        if who == "port":
+            ambi = cli_main(argv + ["--device", "cpu"])
+            cfg = TrainConfig.load(model_dir)
+            monkeypatch.setattr(jax_deploy, "MonoToAmbix",
+                                lambda *a, **k: _JaxEngineStandIn(ambi, cfg))
+        else:
+            jax_cli.main(argv)
+        runs[who] = (stub, out, [ffmpeg_stub.normalised(c, out)
+                                 for c in ffmpeg_stub.calls(stub)])
+
+    (port_bin, port_out, port_calls), (jax_bin, jax_out, jax_calls) = runs["port"], runs["jax"]
+    assert port_calls == jax_calls
+    if case == "video":
+        assert port_calls == [] and not os.path.exists(port_out)
+        return
+    # trim, split audio, split video, mux
+    assert [c[:4] for c in port_calls] == [["-y", "-ss", str(START), "-i"],
+                                           ["-y", "-i", "<ambix.wav>", "-vn"],
+                                           ["-y", "-i", "<trimmed.mp4>", "-an"],
+                                           ["-y", "-i", port_calls[3][2], "-i"]]
+    raw = ffmpeg_stub.calls(port_bin)
+    assert not os.path.exists(raw[0][-1]) and not os.path.exists(raw[1][2])
+    with open(os.path.join(port_bin, "mix4_audio.wav"), "rb") as f, \
+            open(os.path.join(jax_bin, "mix4_audio.wav"), "rb") as g:
+        assert f.read() == g.read()
+    mixed, rate = load_wav(os.path.join(port_bin, "mix4_audio.wav"))
+    assert rate == 48000
+    if case == "VR":
+        np.testing.assert_allclose(mixed, ambi, rtol=0, atol=1.5 / 32768)
+        moov = next(b for b in parse_top_level(open(port_out, "rb").read()) if b.type == b"moov")
+        (sa3d,) = moov.find_all(b"SA3D")
+        assert sa3d.payload[2:6] == (1).to_bytes(4, "big")          # ambisonic order 1
+        assert any(u.payload.startswith(SPHERICAL_UUID) for u in moov.find_all(b"uuid"))
+    else:
+        np.testing.assert_allclose(mixed, binauralize_stereo(ambi), rtol=0, atol=2 / 32768)
+        assert open(port_out, "rb").read() == ffmpeg_stub.fake_mp4()
+    assert open(port_out, "rb").read() == open(jax_out, "rb").read()
+    frames = _video_frames(os.path.join(port_bin, "mix4_video.mp4"))
+    np.testing.assert_array_equal(frames, _video_frames(os.path.join(jax_bin, "mix4_video.mp4")))
+    source = _video_frames(source_video)
+    if case == "overlay_map":
+        assert frames.shape[1:] == source.shape[1:] and len(frames) >= 5
+    else:
+        np.testing.assert_array_equal(frames, source)
+
+
+def test_cli_refuses_save_video_without_video(tmp_path):
+    """As the JAX CLI asserts, --save_video needs VIDEO: ValueError before
+    any model is loaded (the model dir does not exist)."""
+    with pytest.raises(ValueError, match="VIDEO"):
+        cli_main([str(tmp_path / "model"), str(tmp_path / "clip"), "--save_video",
+                  "--device", "cpu"])
 
 
 def test_cli_refuses_n_data_that_cannot_shard_the_batch(tmp_path):

@@ -23,14 +23,23 @@ PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py"))
 CHECKED_FILES = PORT_FILES + ["chip_smoke.py"]
 
 IMPORT_ALL = f"""
-import importlib, json, pkgutil, sys
+import contextlib, importlib, io, json, os, pkgutil, sys, tempfile
 import spatialaudiogen_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-import contextlib, io, os, tempfile
 from spatialaudiogen_tpu_torch.cli import deploy, eval, parse_eval_results, serve, train
-deploy.parse_arguments(["model", "input"])
+from spatialaudiogen_tpu_torch.cli import flow, power_map, spatialmedia
+from spatialaudiogen_tpu_torch.etl import download, preprocess
+deploy.parse_arguments(["model", "input", "video.mp4", "--save_video", "--overlay_map", "--VR"])
+for cli in (flow, power_map, spatialmedia, download, preprocess):
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        try:
+            cli.main(["--help"])
+        except SystemExit as stop:
+            assert stop.code == 0 and "usage" in text.getvalue(), cli
+        else:
+            raise AssertionError(cli)
 serve.parse_arguments(["model", "a.wav,b.wav", "oa.wav,ob.wav", "--frames_dir", "d1,d2"])
 train.parse_arguments(["db", "model", "--encoders", "audio", "video"])
 eval.parse_arguments(["model", "--device_metrics", "--emd", "sinkhorn"])
@@ -68,7 +77,10 @@ def test_every_module_imports_without_jax_or_nvcc():
                  "eval.evaluator", "ops.eval_metrics", "ops.sinkhorn", "cli.eval",
                  "cli.parse_eval_results", "ambisonics.emd", "utils.io_position",
                  "deploy.stream", "cli.serve", "parallel.mesh", "parallel.distributed",
-                 "parallel.collectives", "utils.tensorboard"):
+                 "parallel.collectives", "utils.tensorboard", "ops.flow", "etl.flow",
+                 "etl.preprocess", "etl.download", "etl.projections", "etl.reproject",
+                 "deploy.mux", "deploy.sa3d", "utils.cmd", "utils.io_video", "cli.flow",
+                 "cli.spatialmedia", "cli.power_map"):
         assert f"spatialaudiogen_tpu_torch.{name}" in out["modules"], name
     assert out["forbidden"] == [], out["forbidden"]
 
