@@ -10,8 +10,9 @@ entry points, deploy, training, eval and serving, in its three
 configurations (the default NCHW U-Net in float32, the NHWC-mask U-Net,
 bf16 compute), then
 the reference's default model (audio + flow + video encoders) the same
-way, and the flow ETL's solver on the card (phase 17), and fails
-(non-zero exit) on the first phase that goes wrong:
+way, the flow ETL's solver on the card (phase 17), and the tools around
+the model (phase 18: the TF1 bundle route, the packer, the ambisonics
+CLIs), and fails (non-zero exit) on the first phase that goes wrong:
 
   1. preconditions: a CUDA card, its name and power limit, torch/CUDA/nvcc;
   2. build: the kernels (K1, the fused masked comb-ISTFT; K2, its fused
@@ -127,7 +128,24 @@ way, and the flow ETL's solver on the card (phase 17), and fails
      flow maps are the card's flow encoded by etl.preprocess.flow_frame_rgb
      (finite, W passed through, K1 launched). The mux and the ETL's
      ffmpeg and jpg steps do not run on the card's host, which has
-     neither ffmpeg nor Pillow.
+     neither ffmpeg nor Pillow;
+ 18. the tools around the model: cli.export_to_tf_bundle of phase 7's
+     trained model dir, the bundle read back with CRCs verified and equal
+     to to_tf_var_dict of its params.npz, cli.import_tf_checkpoint of it
+     into a fresh model dir (params.npz bit for bit the original's), and
+     MonoToAmbix deploys of phase 4's clip at batch 16 from both dirs
+     bit for bit equal, K1 launched once per batch in each (the warm
+     repeat's realtime factor from the imported dir); the golden fixture
+     tests/fixtures/tfbundle read with CRCs verified; a source-layout
+     audio-only clip (ambix/ PCM16 wavs, audio_pow.lst) packed by
+     sag-torch-pack's main with one worker (in this process; a pool's
+     workers are spawned, never forked from a CUDA context), its int16
+     ambix.npy equal to the wavs and taken up by SampleReader, and 3
+     cli.train steps of phase 13's audio-only unet_mask model over that
+     pack (finite losses, K1 and K2 once a step); cli.binauralize --use_hrtfs (the embedded filters) on the
+     imported model's deploy and cli.encode --xyz 0 1 0 (a source at +90
+     degrees azimuth) of its W, binauralized the same way: finite, of
+     the right shapes, the encoded source louder in the left ear.
 
 Phase 10 also times the batch-128 train steps with cuDNN's deterministic
 algorithms, and phase 12 checks that five eval steps of one batch give
@@ -145,8 +163,9 @@ the NHWC forward and train step, the f32, bf16 and default-model
 trainings, the default model's deploy, each cli.eval run, the f32 serve
 stream, the serve batcher's ticks, each rank's cli.train and the
 TensorBoard cli.train of phase 14, each rank's and each one process's CLI
-of phase 15, phase 16's cli.train, deploy and eval, phase 17's deploy) and
-read just after it. Everything else runs the model's default pallas_precision, "default"
+of phase 15, phase 16's cli.train, deploy and eval, phase 17's deploy,
+phase 18's two deploys and its cli.train) and read just after it.
+Everything else runs the model's default pallas_precision, "default"
 (K1, K2 and K3 on bf16), except phases 14 and 15's runs ("highest"). The second-to-last line is a JSON object describing the
 kernels (top-level times the bf16 route's, the 3xTF32 route's under
 "highest"; K1's and K2's launches are those of the f32 training, K3's
@@ -160,8 +179,11 @@ its batch-1 times under "serve_batch1"; K1's and K2's per rank in phase
 "multi_device_launches"; K1's per rank in phase 15's sharded deploy, eval
 and serve under "sharded_launches", and K1's and K2's in phase 16's
 order-2 training (K1's also in its deploy and eval) under
-"order2_launches", and K1's in phase 17's deploy over the card-made flow
-maps under "flow_deploy_launches"; "shapes" names every shape a
+"order2_launches", K1's in phase 17's deploy over the card-made flow
+maps under "flow_deploy_launches", K1's in phase 18's deploy of the
+imported model under "tf_import_deploy_launches", and K1's and K2's in
+its cli.train over the port-written pack under "pack_train_launches";
+"shapes" names every shape a
 kernel was held to its plain version at, with its bf16-route times); the
 last is
 {"ok": true, "device": {...}}. Without a CUDA card the
@@ -659,16 +681,8 @@ def write_clip(folder: Path, seed: int = SEED, level: float = 1.0,
     `level` scales the audio (1.0: an RMS of about 0.19). Returns the
     int16 audio."""
     rng = np.random.RandomState(seed)
-    n = seconds * RATE
-    t = np.arange(n) / RATE
-    w = level * (0.3 * np.sin(2 * np.pi * 440 * t) + 0.1 * rng.randn(n))
-    az = np.linspace(-np.pi, np.pi, n)
-    channels = [w, w * np.sin(az), 0.2 * w, w * np.cos(az)]
-    if order == 2:   # V, T, R, S, U of a source on the horizon at azimuth az
-        channels += [0.5 * w * np.sin(2 * az), 0.1 * w * np.sin(az), -0.2 * w,
-                     0.1 * w * np.cos(az), 0.5 * w * np.cos(2 * az)]
-    foa = np.stack(channels, 1)
-    audio = np.clip(np.round(foa * 32767 * 0.8), -32768, 32767).astype(np.int16)
+    audio = clip_audio(rng, level, seconds, order)
+    n_channels = audio.shape[1]
 
     h, wd = FRAME_HW
     n_frames = seconds * 10
@@ -692,17 +706,39 @@ def write_clip(folder: Path, seed: int = SEED, level: float = 1.0,
     np.save(pack / "video.npy", frames)
     np.save(pack / "flow.npy", flow)
     np.save(pack / "flow_lims.npy", lims.astype(np.float32))
-    meta = {"version": 1, "rate": RATE, "num_channels": len(channels), "num_files": seconds,
+    meta = {"version": 1, "rate": RATE, "num_channels": n_channels, "num_files": seconds,
             "audio_dtype": "int16", "video_frames": n_frames,
             "frame_shape": [h, wd, 3], "flow_frames": n_frames, "flow_shape": [h, wd, 3]}
     (pack / "meta.json").write_text(json.dumps(meta))
+    write_audio_pow(folder, audio)
+    return audio
+
+
+def clip_audio(rng, level: float, seconds: int, order: int) -> np.ndarray:
+    """(seconds * RATE, (order + 1)^2) int16 ambisonics of a source moving
+    once around the horizon: W a 440 Hz tone in noise from `rng`, scaled
+    by `level`."""
+    n = seconds * RATE
+    t = np.arange(n) / RATE
+    w = level * (0.3 * np.sin(2 * np.pi * 440 * t) + 0.1 * rng.randn(n))
+    az = np.linspace(-np.pi, np.pi, n)
+    channels = [w, w * np.sin(az), 0.2 * w, w * np.cos(az)]
+    if order == 2:   # V, T, R, S, U of a source on the horizon at azimuth az
+        channels += [0.5 * w * np.sin(2 * az), 0.1 * w * np.sin(az), -0.2 * w,
+                     0.1 * w * np.cos(az), 0.5 * w * np.cos(2 * az)]
+    foa = np.stack(channels, 1)
+    return np.clip(np.round(foa * 32767 * 0.8), -32768, 32767).astype(np.int16)
+
+
+def write_audio_pow(folder: Path, audio: np.ndarray) -> None:
+    """The audio power index of int16 `audio`: the RMS of W over each 0.1 s
+    window from 0.5 s, as the preprocessing writes it."""
     with open(folder / "audio_pow.lst", "w") as f:
-        for i in range((seconds - 1) * 10):
+        for i in range((audio.shape[0] // RATE - 1) * 10):
             tt = i / 10.0 + 0.5
             ss = int(tt * RATE)
             seg = audio[ss: ss + RATE // 10, 0] / 32768.0
             f.write(f"{tt} {np.sqrt((seg ** 2).mean())}\n")
-    return audio
 
 
 def model_dir_at(model_dir: Path, precision: str) -> Path:
@@ -988,37 +1024,38 @@ def write_train_db(db: Path, order: int = 1, seconds: int = TRAIN_CLIP_SECONDS) 
                                  f"would be gated out by the feeder")
 
 
-def cli_train_run(db: Path, model_dir: Path, *flags: str, encoders=("audio", "video")):
-    """cli.train for TRAIN_STEPS steps at batch 32 on the card, with the
-    kernel counts set to 0 just before and read just after (encoders None:
-    the CLI's default, audio flow video). Returns (train state, (K1, K2, K3
-    launches), losses)."""
+def cli_train_run(db: Path, model_dir: Path, *flags: str, encoders=("audio", "video"),
+                  steps: int = TRAIN_STEPS):
+    """cli.train for `steps` steps (TRAIN_STEPS by default) at batch 32 on
+    the card, with the kernel counts set to 0 just before and read just
+    after (encoders None: the CLI's default, audio flow video). Returns
+    (train state, (K1, K2, K3 launches), losses)."""
     from spatialaudiogen_tpu_torch.cli import train as cli_train
     from spatialaudiogen_tpu_torch.ops import masked_istft as k
 
     batch = TRAIN_BATCHES[0]
     argv = [str(db), str(model_dir), *(["--encoders", *encoders] if encoders else []),
-            "--batch_size", str(batch), "--n_iters", str(TRAIN_STEPS),
+            "--batch_size", str(batch), "--n_iters", str(steps),
             "--log_every", "1", "--ckpt_every", "0", "--n_workers", "4",
             "--seed", str(SEED), "--device", DEVICE, *flags]
     log(f"train: cli.train {' '.join(argv[2:])}")
     k.launch_count = k.bwd_launch_count = k.nhwc_launch_count = 0
     t0 = time.perf_counter()
-    state, steps = cli_train.main(argv)
+    state, ran = cli_train.main(argv)
     wall = time.perf_counter() - t0
     launches = (k.launch_count, k.bwd_launch_count, k.nhwc_launch_count)
     recs = [json.loads(line) for line in
             (model_dir / "metrics.jsonl").read_text().splitlines()]
     losses = [r["total_loss"] for r in recs]
-    log(f"train (card, batch {batch}{' ' if flags else ''}{' '.join(flags)}): {steps} steps "
+    log(f"train (card, batch {batch}{' ' if flags else ''}{' '.join(flags)}): {ran} steps "
         f"in {wall:.1f} s wall (first steps included), K1/K2/K3 launches "
         f"{launches[0]}/{launches[1]}/{launches[2]}, losses {[round(x, 3) for x in losses]}")
-    if steps != TRAIN_STEPS or [r["step"] for r in recs] != list(range(TRAIN_STEPS)):
-        raise AssertionError(f"train ran {steps} steps, logged {[r['step'] for r in recs]}")
+    if ran != steps or [r["step"] for r in recs] != list(range(steps)):
+        raise AssertionError(f"train ran {ran} steps, logged {[r['step'] for r in recs]}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train losses not finite: {losses}")
-    if min(launches[:2]) < TRAIN_STEPS or launches[2]:
-        raise AssertionError(f"K1/K2/K3 launched {launches} times in {TRAIN_STEPS} "
+    if min(launches[:2]) < steps or launches[2]:
+        raise AssertionError(f"K1/K2/K3 launched {launches} times in {steps} "
                              f"train steps")
     return state, launches, losses
 
@@ -2735,6 +2772,193 @@ def flow_phase(card: str) -> dict:
     return {"launches": launched[0]}
 
 
+# ---------------------------------------------------------------------------
+# 18. the tools around the model: the TF1 bundle route, the packer, the
+#     ambisonics CLIs
+# ---------------------------------------------------------------------------
+
+PACK_CLIP_SECONDS = 6
+PACK_TRAIN_STEPS = 3
+GOLDEN_BUNDLE = ROOT / "tests" / "fixtures" / "tfbundle" / "model.ckpt-42"
+
+
+def read_npz(path: Path) -> dict:
+    with np.load(path) as f:
+        return {key: f[key] for key in f.files}
+
+
+def same_arrays(got: dict, want: dict, what: str) -> None:
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: names differ: {sorted(set(got) ^ set(want))[:5]}")
+    for key, value in want.items():
+        if got[key].dtype != value.dtype or not np.array_equal(got[key], value):
+            raise AssertionError(f"{what}: {key} differs")
+
+
+def deploy_counted(model_dir: Path, card: str, what: str) -> tuple:
+    """MonoToAmbix of model_dir over phase 4's clip (DEPLOY_SECONDS at
+    DEPLOY_BATCH) with the kernel counts set to 0 just before and read just
+    after, then a warm repeat timed. -> (output, (K1, K2, K3) launches,
+    the warm repeat's seconds)."""
+    from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix
+    from spatialaudiogen_tpu_torch.ops import masked_istft as k
+
+    engine = MonoToAmbix(str(model_dir), batch_size=DEPLOY_BATCH, device=DEVICE)
+    clip = str(SCRATCH / "clip")
+    k.launch_count = k.bwd_launch_count = k.nhwc_launch_count = 0
+    ambi = engine.deploy(clip, deploy_start=DEPLOY_START, deploy_duration=DEPLOY_SECONDS)
+    launches = (k.launch_count, k.bwd_launch_count, k.nhwc_launch_count)
+    t0 = time.perf_counter()
+    engine.deploy(clip, deploy_start=DEPLOY_START, deploy_duration=DEPLOY_SECONDS)
+    warm_s = time.perf_counter() - t0
+    windows = ambi.shape[0] // engine.geometry.snd_dur
+    log(f"tools: deploy from the {what} model dir (card, batch {DEPLOY_BATCH}): shape "
+        f"{ambi.shape}, K1/K2/K3 launches {launches[0]}/{launches[1]}/{launches[2]} for "
+        f"{windows} windows, warm {warm_s:.3f} s -> {DEPLOY_SECONDS / warm_s:.2f}x realtime "
+        f"[{card}]")
+    if launches != (-(-windows // DEPLOY_BATCH), 0, 0):
+        raise AssertionError(f"deploy from the {what} dir: K1/K2/K3 launched {launches} for "
+                             f"{windows} windows at batch {DEPLOY_BATCH}")
+    if not np.isfinite(ambi).all():
+        raise AssertionError(f"deploy from the {what} dir is not finite")
+    del engine
+    torch.cuda.empty_cache()
+    return ambi, launches, warm_s
+
+
+def tf_route(card: str) -> tuple[np.ndarray, int]:
+    """Phase 7's trained model dir out to a TF1 bundle and back in
+    (cli.export_to_tf_bundle, cli.import_tf_checkpoint), both dirs
+    deployed; and the golden fixture read. -> (the imported model's
+    deploy, its K1 launches)."""
+    from spatialaudiogen_tpu_torch.cli import export_to_tf_bundle, import_tf_checkpoint
+    from spatialaudiogen_tpu_torch.models.convert import nest, to_tf_var_dict
+    from spatialaudiogen_tpu_torch.train.checkpoint import latest_step
+    from spatialaudiogen_tpu_torch.utils.tf_bundle import load_tf_checkpoint
+
+    trained, out = SCRATCH / "trained", SCRATCH / "tools"
+    t0 = time.perf_counter()
+    prefix = export_to_tf_bundle.main([str(trained), str(out / "bundle")])
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bundle = load_tf_checkpoint(prefix, verify_crc=True)
+    read_s = time.perf_counter() - t0
+    step = int(bundle.pop("global_step"))
+    if step != latest_step(str(trained)):
+        raise AssertionError(f"bundle global_step {step}, model dir step "
+                             f"{latest_step(str(trained))}")
+    params = read_npz(trained / "params.npz")
+    same_arrays(bundle, to_tf_var_dict(nest(params)), "bundle vs to_tf_var_dict(params)")
+    nbytes = sum(v.nbytes for v in bundle.values())
+
+    imported = out / "imported"
+    imported.mkdir(parents=True)
+    shutil.copy(trained / "train-params.json", imported)
+    t0 = time.perf_counter()
+    import_tf_checkpoint.main([str(imported), prefix, "--step", str(step)])
+    import_s = time.perf_counter() - t0
+    same_arrays(read_npz(imported / "params.npz"), params, "imported params.npz")
+    if latest_step(str(imported)) != step:
+        raise AssertionError(f"imported dir's step {latest_step(str(imported))} != {step}")
+    log(f"tools: {len(bundle)} variables ({nbytes / 1e6:.1f} MB) + global_step {step}: export "
+        f"{export_s:.2f} s, read with CRCs {read_s:.2f} s, import {import_s:.2f} s; the "
+        f"bundle is to_tf_var_dict of params.npz and the import gives params.npz back, bit "
+        f"for bit")
+
+    original, _, _ = deploy_counted(trained, card, "trained")
+    ambi, launches, _ = deploy_counted(imported, card, "imported")
+    if not np.array_equal(ambi, original):
+        raise AssertionError("the imported model's deploy differs from the original's")
+    log("tools: the imported model's deploy equals the original's bit for bit")
+
+    golden = load_tf_checkpoint(str(GOLDEN_BUNDLE), verify_crc=True)
+    if sorted(golden) != ["a/biases", "a/weights", "step"] or \
+            not np.array_equal(golden["a/weights"],
+                               np.arange(6, dtype=np.float32).reshape(2, 3) / 7.0) or \
+            not np.array_equal(golden["a/biases"], np.array([-1.5, 2.5], np.float32)) or \
+            golden["step"].dtype != np.int64 or int(golden["step"]) != 42:
+        raise AssertionError(f"golden bundle decodes to {golden}")
+    log(f"tools: golden fixture {GOLDEN_BUNDLE.relative_to(ROOT)} read, CRCs verified")
+    return ambi, launches[0]
+
+
+def pack_route() -> tuple[int, int]:
+    """A source-layout audio-only clip packed by sag-torch-pack's main, then
+    cli.train steps over the pack. -> (K1, K2) launches of the training."""
+    from spatialaudiogen_tpu_torch.data import packed
+    from spatialaudiogen_tpu_torch.data.readers import SampleReader
+    from spatialaudiogen_tpu_torch.utils.io_audio import save_wav
+
+    db = SCRATCH / "tools" / "pack_db"
+    folder = db / "clip0"
+    (folder / "ambix").mkdir(parents=True)
+    audio = clip_audio(np.random.RandomState(SEED + 40), 1.6, PACK_CLIP_SECONDS, 1)
+    for i in range(PACK_CLIP_SECONDS):
+        # save_wav writes round(x * 32767): these are the int16 samples
+        save_wav(str(folder / "ambix" / f"{i:06d}.wav"),
+                 audio[i * RATE: (i + 1) * RATE] / 32767.0, RATE)
+    write_audio_pow(folder, audio)
+    t0 = time.perf_counter()
+    packed.main([str(db), "--num_workers", "1"])
+    pack_s = time.perf_counter() - t0
+    ambix = np.load(folder / "packed" / "ambix.npy")
+    if ambix.dtype != np.int16 or not np.array_equal(ambix, audio):
+        raise AssertionError(f"packed ambix.npy ({ambix.dtype}, {ambix.shape}) is not the "
+                             f"wavs' int16 samples")
+    reader = SampleReader(str(folder), return_video=False)
+    if not isinstance(reader.audio_reader, packed.PackedAudioReader):
+        raise AssertionError(f"SampleReader took {type(reader.audio_reader).__name__}, "
+                             f"not the pack")
+    log(f"tools: sag-torch-pack of a {PACK_CLIP_SECONDS} s source-layout clip in "
+        f"{pack_s:.2f} s: ambix.npy int16, equal to the wavs, taken up by SampleReader")
+    _, launches, _ = cli_train_run(db, SCRATCH / "tools" / "pack_trained",
+                                   encoders=("audio",), steps=PACK_TRAIN_STEPS)
+    return launches[0], launches[1]
+
+
+def toolbox_route(deployed: np.ndarray) -> None:
+    """cli.binauralize --use_hrtfs of the deploy's FOA; cli.encode --xyz 0 1
+    0 of its W, binauralized the same way, louder in the left ear."""
+    from spatialaudiogen_tpu_torch.cli import binauralize as cli_binauralize
+    from spatialaudiogen_tpu_torch.cli import encode as cli_encode
+    from spatialaudiogen_tpu_torch.utils.io_audio import load_wav, save_wav
+
+    out = SCRATCH / "tools"
+    n = deployed.shape[0]
+    save_wav(str(out / "deploy.wav"), deployed, RATE)
+    save_wav(str(out / "mono.wav"), deployed[:, 0], RATE)
+    t0 = time.perf_counter()
+    cli_binauralize.main([str(out / "deploy.wav"), str(out / "deploy_stereo.wav"),
+                          "--use_hrtfs"])
+    cli_encode.main([str(out / "mono.wav"), str(out / "encoded.wav"), "--xyz", "0", "1", "0"])
+    cli_binauralize.main([str(out / "encoded.wav"), str(out / "encoded_stereo.wav"),
+                          "--use_hrtfs"])
+    cli_s = time.perf_counter() - t0
+    results = {name: load_wav(str(out / f"{name}.wav"))
+               for name in ("deploy_stereo", "encoded", "encoded_stereo")}
+    for name, channels in (("deploy_stereo", 2), ("encoded", 4), ("encoded_stereo", 2)):
+        data, rate = results[name]
+        if data.shape != (n, channels) or rate != RATE or not np.isfinite(data).all():
+            raise AssertionError(f"{name}.wav: shape {data.shape}, rate {rate}, finite "
+                                 f"{np.isfinite(data).all()}")
+    left, right = (results["encoded_stereo"][0] ** 2).sum(axis=0)
+    log(f"tools: cli.binauralize --use_hrtfs, cli.encode --xyz 0 1 0 and its binaural render "
+        f"in {cli_s:.2f} s; the +90 degree source's left/right energy {left:.1f}/{right:.1f}")
+    if not left > right:
+        raise AssertionError(f"a source at +90 degrees azimuth is not louder left: "
+                             f"{left:.3f} vs {right:.3f}")
+
+
+def tools_phase(card: str) -> dict:
+    """Phase 18 (module docstring). -> K1's launches in the imported
+    model's deploy, and K1's and K2's in the training over the pack."""
+    deployed, import_launches = tf_route(card)
+    pack_launches = pack_route()
+    toolbox_route(deployed)
+    return {"tf_import_deploy_launches": import_launches,
+            "pack_train_launches": pack_launches}
+
+
 def phase(fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -2801,6 +3025,7 @@ def main() -> int:
         sharded = phase(sharded_inference_runs, card)
         order2 = phase(order2_phase, card)
         flow = phase(flow_phase, card)
+        tools = phase(tools_phase, card)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     # The top-level numbers are the "default" (bf16) route's, the one the
@@ -2821,13 +3046,16 @@ def main() -> int:
                                         else ranks[0] for what, ranks in multi.items()},
               "sharded_launches": sharded,
               "order2_launches": order2["launches"],
-              "flow_deploy_launches": flow["launches"]}, ()),
+              "flow_deploy_launches": flow["launches"],
+              "tf_import_deploy_launches": tools["tf_import_deploy_launches"],
+              "pack_train_launches": tools["pack_train_launches"][0]}, ()),
             ("masked_istft_bwd", "masked_istft_bwd.cu", K2_REPLACES, k2_times,
              {"launches": train["bwd_launches"],
               "default_model_launches": default["bwd_launches"],
               "multi_device_launches": {what: [r[1] for r in ranks] if what != "tb"
                                         else ranks[1] for what, ranks in multi.items()},
-              "order2_launches": order2["bwd_launches"]}, ()),
+              "order2_launches": order2["bwd_launches"],
+              "pack_train_launches": tools["pack_train_launches"][1]}, ()),
             ("masked_istft_nhwc", "masked_istft_nhwc.cu", K3_REPLACES, k3_times, k3,
              ("k1_ms",))):
         main, highest = times["flagship f32", "default"], times["flagship f32", "highest"]

@@ -1,5 +1,5 @@
 """Ambisonic rotations in azimuth used by training augmentation (the port's
-copy of the parts of spatialaudiogen_tpu.ambisonics.rotation it calls).
+copy of spatialaudiogen_tpu.ambisonics.rotation).
 
 The training feeder rotates chunks around the vertical axis; at first order
 the matrix matches reference feeder.py:93-101 for ACN ordering [W, Y, Z, X]:
@@ -8,11 +8,26 @@ the matrix matches reference feeder.py:93-101 for ACN ordering [W, Y, Z, X]:
     Y' = X sin(a) + Y cos(a)
     Z' = Z
     X' = X cos(a) - Y sin(a)
+
+`rotate_foa` applies it to (T, 4) chunks; `rotate_ambisonics` rotates any
+order.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def foa_rotation_matrix(rotation: float) -> np.ndarray:
+    """4x4 ACN rotation matrix R (sh_rotation_z at order 1); apply as
+    chunk @ R.T."""
+    assert -np.pi <= rotation < np.pi
+    return sh_rotation_z(1, rotation)
+
+
+def rotate_foa(chunk, rotation: float):
+    """Rotate an ACN/SN3D FOA chunk (..., 4) by `rotation` radians azimuth."""
+    return rotate_ambisonics(chunk, rotation, 1)
 
 
 def sh_rotation_z(order: int, rotation: float) -> np.ndarray:
@@ -21,7 +36,8 @@ def sh_rotation_z(order: int, rotation: float) -> np.ndarray:
     A rotation about the vertical axis mixes only the +/-m pairs within each
     degree: with c = channel (n, m>0), s = channel (n, -m),
         c' = cos(m a) c - sin(m a) s,   s' = sin(m a) c + cos(m a) s,
-    and m=0 channels are invariant. Apply as chunk @ R.T.
+    and m=0 channels are invariant. Specializes to foa_rotation_matrix at
+    order 1. Apply as chunk @ R.T.
     """
     n_ch = (order + 1) ** 2
     rot = np.eye(n_ch)

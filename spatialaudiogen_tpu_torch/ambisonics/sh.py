@@ -11,8 +11,10 @@ where `phi` is azimuth, `nu` elevation, P includes the Condon-Shortley phase
 The leading (-1)^m cancels the Condon-Shortley phase.
 
 `spherical_harmonics_matrix` / `sh_matrix_polar` take any order (scipy
-lpmv) and serve host DSP (decoding grids, eval maps). The JAX package's
-closed-form device path, `sh_matrix_polar_jnp`, is not ported yet.
+lpmv) and serve host DSP (encoding, decoding grids, eval maps). The JAX
+package's closed-form device path, `sh_matrix_polar_jnp`, which no module
+of that package calls, waits for the slice that ports the rest of the
+library (ROADMAP item 15g).
 """
 
 from __future__ import annotations

@@ -30,9 +30,13 @@ for name in names:
     importlib.import_module(name)
 from spatialaudiogen_tpu_torch.cli import deploy, eval, parse_eval_results, serve, train
 from spatialaudiogen_tpu_torch.cli import flow, power_map, spatialmedia
+from spatialaudiogen_tpu_torch.cli import binauralize, encode, encode_and_binauralize
+from spatialaudiogen_tpu_torch.cli import export_to_tf_bundle, import_tf_checkpoint
+from spatialaudiogen_tpu_torch.data import packed
 from spatialaudiogen_tpu_torch.etl import download, preprocess
 deploy.parse_arguments(["model", "input", "video.mp4", "--save_video", "--overlay_map", "--VR"])
-for cli in (flow, power_map, spatialmedia, download, preprocess):
+for cli in (flow, power_map, spatialmedia, download, preprocess, import_tf_checkpoint,
+            export_to_tf_bundle, encode, binauralize, encode_and_binauralize, packed):
     with contextlib.redirect_stdout(io.StringIO()) as text:
         try:
             cli.main(["--help"])
@@ -51,7 +55,9 @@ with tempfile.TemporaryDirectory() as d:
         parse_eval_results.main([fn])
 print(json.dumps({{"modules": names,
                   "forbidden": sorted({{m.split(".")[0] for m in sys.modules}}
-                                      & set({list(FORBIDDEN)!r}))}}))
+                                      & set({list(FORBIDDEN)!r})),
+                  "image_libs": sorted({{m.split(".")[0] for m in sys.modules}}
+                                       & {{"PIL", "cv2", "sklearn"}})}}))
 """
 
 
@@ -80,9 +86,17 @@ def test_every_module_imports_without_jax_or_nvcc():
                  "parallel.collectives", "utils.tensorboard", "ops.flow", "etl.flow",
                  "etl.preprocess", "etl.download", "etl.projections", "etl.reproject",
                  "deploy.mux", "deploy.sa3d", "utils.cmd", "utils.io_video", "cli.flow",
-                 "cli.spatialmedia", "cli.power_map"):
+                 "cli.spatialmedia", "cli.power_map", "utils.tf_bundle",
+                 "cli.import_tf_checkpoint", "cli.export_to_tf_bundle", "data.packed",
+                 "data.synthetic", "ambisonics.encoder", "ambisonics.binauralizer",
+                 "ambisonics.binaural_filters", "ambisonics.hrir", "ambisonics.tdesigns",
+                 "cli.encode", "cli.binauralize", "cli.encode_and_binauralize"):
         assert f"spatialaudiogen_tpu_torch.{name}" in out["modules"], name
     assert out["forbidden"] == [], out["forbidden"]
+    # the card's host has no Pillow, OpenCV or scikit-learn: nothing of the
+    # port may need them to import (data.synthetic imports Pillow when it
+    # writes a jpg)
+    assert out["image_libs"] == [], out["image_libs"]
 
 
 @pytest.mark.parametrize("path", CHECKED_FILES)
