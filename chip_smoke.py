@@ -12,7 +12,8 @@ bf16 compute), then
 the reference's default model (audio + flow + video encoders) the same
 way, the flow ETL's solver on the card (phase 17), and the tools around
 the model (phase 18: the TF1 bundle route, the packer, the ambisonics
-CLIs), and fails (non-zero exit) on the first phase that goes wrong:
+CLIs) and the rest of the library (phase 19), and fails (non-zero exit) on
+the first phase that goes wrong:
 
   1. preconditions: a CUDA card, its name and power limit, torch/CUDA/nvcc;
   2. build: the kernels (K1, the fused masked comb-ISTFT; K2, its fused
@@ -146,6 +147,26 @@ CLIs), and fails (non-zero exit) on the first phase that goes wrong:
      imported model's deploy and cli.encode --xyz 0 1 0 (a source at +90
      degrees azimuth) of its W, binauralized the same way: finite, of
      the right shapes, the encoded source louder in the left ear.
+ 19. the library: the flagship train step at batch 128 in f32 with remat
+     off, then on, from the same weights and batch (loss, gradient and
+     the first BN running mean's move within REMAT_RTOL: the BN averages
+     move once a step), each run's step ms (median of 5 after warm-up,
+     synchronised host clock) and peak memory; three remat steps inside
+     utils.profiling.device_trace, the trace file read back and K1's and
+     K2's kernel symbols counted (3 each, as the counters); the flagship
+     forward at batch 128 f32 with hermitian_dft on against the full-bin
+     forward with K1 on 3xTF32 (HERMITIAN_RTOL; K1 launched 0 and 1
+     times), both timed; GenericHarness over ResNet50(num_classes=1000)
+     at 224x224, batch 32: 128 seeded uint8 256x320 images through
+     distort_image in parallel_map's spawned workers and imagenet_normalize,
+     batched by ArrayDataset through a BackgroundGenerator, 4 fit steps
+     (the first loss within HARNESS_RTOL of a CPU harness from the same
+     weights), evaluate with accuracy and top_k_accuracy, predict; step
+     ms, images/s, peak memory and SectionTimer's data / step split;
+     ResNet101 and ResNet152 forwards at batch 8; lstm, gru, rnn and a
+     bidirectional GRU at (32, 100, 512) against the CPU (RNN_ATOL), and
+     sh_matrix_polar_torch at order 3 over 10^5 directions against
+     numpy's sh_matrix_polar, all timed.
 
 Phase 10 also times the batch-128 train steps with cuDNN's deterministic
 algorithms, and phase 12 checks that five eval steps of one batch give
@@ -164,7 +185,8 @@ trainings, the default model's deploy, each cli.eval run, the f32 serve
 stream, the serve batcher's ticks, each rank's cli.train and the
 TensorBoard cli.train of phase 14, each rank's and each one process's CLI
 of phase 15, phase 16's cli.train, deploy and eval, phase 17's deploy,
-phase 18's two deploys and its cli.train) and read just after it.
+phase 18's two deploys and its cli.train, phase 19's traced remat steps
+and its two forwards) and read just after it.
 Everything else runs the model's default pallas_precision, "default"
 (K1, K2 and K3 on bf16), except phases 14 and 15's runs ("highest"). The second-to-last line is a JSON object describing the
 kernels (top-level times the bf16 route's, the 3xTF32 route's under
@@ -182,7 +204,10 @@ order-2 training (K1's also in its deploy and eval) under
 "order2_launches", K1's in phase 17's deploy over the card-made flow
 maps under "flow_deploy_launches", K1's in phase 18's deploy of the
 imported model under "tf_import_deploy_launches", and K1's and K2's in
-its cli.train over the port-written pack under "pack_train_launches";
+its cli.train over the port-written pack under "pack_train_launches",
+K1's and K2's in phase 19's three traced remat steps, as the trace file
+names them, under "remat_trace_launches", and K1's in its Hermitian
+forward under "hermitian_forward_launches";
 "shapes" names every shape a
 kernel was held to its plain version at, with its bf16-route times); the
 last is
@@ -2959,6 +2984,361 @@ def tools_phase(card: str) -> dict:
             "pack_train_launches": pack_launches}
 
 
+# ---------------------------------------------------------------------------
+# 19. the library: the remat flagship step under a device trace, the
+#     Hermitian forward, GenericHarness over ResNet50, recurrent and SH
+# ---------------------------------------------------------------------------
+
+LIB_TRAIN_BATCH = 128
+LIB_TIMED_STEPS = 5
+LIB_TRACE_STEPS = 3
+# remat against the plain step, same weights and batch, relative: cuDNN's
+# default algorithms (atomics in some backward passes) round otherwise
+# from run to run, so the two agree to rounding, not bit for bit
+REMAT_RTOL = 1e-4
+# the Hermitian forward (plain float32 matmuls over the folded mask) against
+# the full-bin one with K1 on 3xTF32, relative L2 (phase 4's "highest" limit)
+HERMITIAN_RTOL = 1e-4
+HARNESS_BATCH, HARNESS_IMAGES, HARNESS_HW = 32, 128, (224, 224)
+HARNESS_SOURCE_HW = (256, 320)
+# the harness's first loss, card against CPU, relative (both float32)
+HARNESS_RTOL = 1e-4
+DEEP_RESNET_BATCH = 8
+RNN_SHAPE = (32, 100, 512)         # (batch, steps, features); 512 units
+RNN_ATOL = 1e-4                     # max abs, card against CPU (outputs in [-1, 1])
+SH_DIRECTIONS = 100_000
+K1_SYMBOL, K2_SYMBOL = "masked_istft_fwd_kernel", "masked_istft_bwd_kernel"
+
+
+def peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def timed_steps(step, n: int) -> list:
+    """Milliseconds of n calls of step(), each ended by a synchronise
+    (host clock)."""
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def count_trace_kernels(logdir: Path) -> tuple[int, int, int]:
+    """(K1 launches, K2 launches, device kernels) in the one trace file that
+    utils.profiling.device_trace wrote under logdir."""
+    files = list(logdir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"device_trace wrote {len(files)} trace files in {logdir}")
+    events = [e for e in json.loads(files[0].read_text())["traceEvents"]
+              if e.get("cat") == "kernel"]
+    return (sum(K1_SYMBOL in e["name"] for e in events),
+            sum(K2_SYMBOL in e["name"] for e in events), len(events))
+
+
+def remat_run(card: str, cfg, init: dict, data: dict, remat: bool, trace: Path | None):
+    """One flagship TrainState with `remat`: the first step (loss, gradient,
+    a BN running mean), warm steps, LIB_TIMED_STEPS timed steps with the peak
+    memory, and with `trace` LIB_TRACE_STEPS steps inside device_trace with
+    the kernel counts set to 0 just before and read just after."""
+    import dataclasses
+
+    from spatialaudiogen_tpu_torch.models.sptaudiogen import SptAudioGen
+    from spatialaudiogen_tpu_torch.ops import masked_istft as k
+    from spatialaudiogen_tpu_torch.train.lr import make_optimizer
+    from spatialaudiogen_tpu_torch.train.state import TrainState
+    from spatialaudiogen_tpu_torch.train.steps import train_step
+    from spatialaudiogen_tpu_torch.utils.profiling import device_trace
+
+    model = SptAudioGen(dataclasses.replace(cfg.model_config(), remat=remat),
+                        frame_hw=FRAME_HW).to(DEVICE)
+    model.load_state_dict(init)
+    state = TrainState(model, make_optimizer(model.parameters(), cfg.lr))
+
+    def step():
+        return train_step(state, data, cfg.lr, cfg.weight_decay)
+
+    loss = float(step()["total_loss"])
+    grad = torch.cat([p.grad.flatten().double() for p in model.parameters()])
+    bn_mean = model.state_dict()["video_encoder.conv1.bn.mean"].double().clone()
+    timed_steps(step, 2)
+    torch.cuda.reset_peak_memory_stats()
+    ms = float(np.median(timed_steps(step, LIB_TIMED_STEPS)))
+    out = {"loss": loss, "grad": grad.cpu(), "bn_mean": bn_mean.cpu(), "ms": ms,
+           "peak_gb": peak_gb()}
+    if trace is not None:
+        k.launch_count = k.bwd_launch_count = k.nhwc_launch_count = 0
+        with device_trace(str(trace), device=DEVICE):
+            for _ in range(LIB_TRACE_STEPS):
+                step()
+        out["counters"] = (k.launch_count, k.bwd_launch_count, k.nhwc_launch_count)
+    del state, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_step_phase(card: str) -> tuple[int, int]:
+    """19a: the flagship (audio + RGB, 32 tracks, 224x448) train step at
+    batch 128 in float32 with remat off, then on, from the same weights and
+    batch. -> K1's and K2's launches in the traced remat steps, as the
+    trace file names them."""
+    from spatialaudiogen_tpu_torch.config import TrainConfig
+    from spatialaudiogen_tpu_torch.train.state import create_train_state
+
+    cfg = TrainConfig(encoders=("audio", "video"), frame_hw=FRAME_HW, seed=SEED)
+    base = create_train_state(cfg, "cpu")
+    init = {key: v.clone() for key, v in base.model.state_dict().items()}
+    del base
+    g = cfg.model_config().geometry
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 60)
+    data = synthetic_batch(gen, LIB_TRAIN_BATCH, g, FRAME_HW, DEVICE)
+    init_mean = init["video_encoder.conv1.bn.mean"].double()
+    trace = SCRATCH / "library" / "trace"
+    plain = remat_run(card, cfg, init, data, False, None)
+    remat = remat_run(card, cfg, init, data, True, trace)
+    loss_err = abs(remat["loss"] - plain["loss"]) / abs(plain["loss"])
+    grad_err = float((remat["grad"] - plain["grad"]).norm() / plain["grad"].norm())
+    moved = plain["bn_mean"] - init_mean
+    bn_err = float((remat["bn_mean"] - plain["bn_mean"]).norm() / moved.norm())
+    for name, run in (("plain", plain), ("remat", remat)):
+        log(f"library: flagship train step batch {LIB_TRAIN_BATCH} f32, {name}: "
+            f"{run['ms']:.2f} ms (median of {LIB_TIMED_STEPS}) -> "
+            f"{LIB_TRAIN_BATCH / (run['ms'] / 1e3):.1f} samples/s, peak memory "
+            f"{run['peak_gb']:.2f} GB [{card}]")
+    log(f"library: remat against plain: loss {remat['loss']:.6f} vs {plain['loss']:.6f} "
+        f"(relative {loss_err:.2e}), gradient relative L2 {grad_err:.2e}, the first BN "
+        f"running mean's move {bn_err:.2e} apart (limits {REMAT_RTOL:g}); step time "
+        f"{remat['ms'] / plain['ms']:.3f}x, peak memory "
+        f"{remat['peak_gb'] / plain['peak_gb']:.3f}x [{card}]")
+    if not (loss_err <= REMAT_RTOL and grad_err <= REMAT_RTOL and bn_err <= REMAT_RTOL):
+        raise AssertionError("the remat step disagrees with the plain step")
+    if not float(moved.norm()) > 0:
+        raise AssertionError("the train step did not move the BN running averages")
+    k1, k2, n_kernels = count_trace_kernels(trace)
+    log(f"library: device_trace of {LIB_TRACE_STEPS} remat steps: {n_kernels} device kernels, "
+        f"{K1_SYMBOL} {k1}, {K2_SYMBOL} {k2}; the counters K1/K2/K3 "
+        f"{'/'.join(map(str, remat['counters']))}")
+    want = (LIB_TRACE_STEPS, LIB_TRACE_STEPS)
+    if (k1, k2) != want or remat["counters"] != want + (0,):
+        raise AssertionError(f"the traced remat steps ran K1/K2 {(k1, k2)} times by the "
+                             f"trace, {remat['counters']} by the counters; want {want}")
+    return k1, k2
+
+
+def hermitian_phase(card: str) -> int:
+    """19b: the flagship forward at batch 128 f32 with hermitian_dft on,
+    against the full-bin forward with K1 on 3xTF32. -> K1's launches in
+    the Hermitian forward."""
+    from spatialaudiogen_tpu_torch.ops import masked_istft as k
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 61)
+    results = {}
+    for name, fields in (("hermitian", {"hermitian_dft": True}),
+                         ("full-bin", {"pallas_precision": "highest"})):
+        model = flagship_model(**fields).eval()
+        if name == "hermitian":
+            audio, video = forward_inputs(gen, LIB_TRAIN_BATCH, model.cfg.geometry)
+        with torch.no_grad():
+            k.launch_count = k.bwd_launch_count = k.nhwc_launch_count = 0
+            out = model(audio, video)
+            torch.cuda.synchronize()
+            launches = (k.launch_count, k.bwd_launch_count, k.nhwc_launch_count)
+            ms = time_ms(lambda: model(audio, video), warmup=2, iters=10)
+        results[name] = out, launches, ms
+        log(f"library: flagship forward batch {LIB_TRAIN_BATCH} f32, {name}: {ms:.2f} ms, "
+            f"K1/K2/K3 launches {'/'.join(map(str, launches))} [{card}]")
+        del model
+        torch.cuda.empty_cache()
+    (herm, herm_launches, herm_ms), (full, full_launches, full_ms) = \
+        results["hermitian"], results["full-bin"]
+    err = rel_l2(herm, full)
+    log(f"library: the Hermitian forward against the full-bin 3xTF32 forward: relative L2 "
+        f"{err:.2e} (limit {HERMITIAN_RTOL:g}), {herm_ms / full_ms:.3f}x its time [{card}]")
+    if herm.shape != full.shape or not torch.isfinite(herm).all() or err > HERMITIAN_RTOL:
+        raise AssertionError(f"the Hermitian forward disagrees: {err:.2e}")
+    if herm_launches != (0, 0, 0) or full_launches != (1, 0, 0):
+        raise AssertionError(f"K1/K2/K3 launched {herm_launches} (Hermitian) and "
+                             f"{full_launches} (full-bin)")
+    return herm_launches[0]
+
+
+def distort_item(item):
+    """One training image: distort_image of (uint8 image, seed) at the
+    harness's size (a top-level function: parallel_map's spawned workers
+    import it)."""
+    from spatialaudiogen_tpu_torch.data.image_prep import distort_image
+
+    img, seed = item
+    return distort_image(img, *HARNESS_HW, rng=np.random.RandomState(seed))
+
+
+class ImageClassifier(torch.nn.Module):
+    """(N, H, W, 3) float images -> logits of a ResNet; BN on batch
+    statistics, moving its running averages, in train mode, and on the
+    running averages in eval mode."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+
+    def forward(self, images):
+        return self.net(images.permute(0, 3, 1, 2), batch_stats=self.training,
+                        update_stats=self.training)
+
+
+def harness_phase(card: str) -> None:
+    """19c: GenericHarness over ResNet50(num_classes=1000) at 224x224,
+    batch 32: 128 seeded uint8 images distorted in parallel_map's workers,
+    normalised, batched by ArrayDataset through a BackgroundGenerator; 4
+    fit steps, evaluate, predict; the first loss against a CPU harness from
+    the same weights; then ResNet101 and ResNet152 forwards."""
+    import copy
+
+    import torch.nn.functional as F
+
+    from spatialaudiogen_tpu_torch.data.generic import (
+        ArrayDataset,
+        BackgroundGenerator,
+        parallel_map,
+    )
+    from spatialaudiogen_tpu_torch.data.image_prep import imagenet_normalize
+    from spatialaudiogen_tpu_torch.models import resnet
+    from spatialaudiogen_tpu_torch.models.classification_metrics import (
+        accuracy,
+        top_k_accuracy,
+    )
+    from spatialaudiogen_tpu_torch.train.harness import GenericHarness
+    from spatialaudiogen_tpu_torch.utils.profiling import SectionTimer
+
+    timer = SectionTimer()
+    rng = np.random.RandomState(SEED + 62)
+    with timer.section("data"):
+        raw = rng.randint(0, 256, (HARNESS_IMAGES,) + HARNESS_SOURCE_HW + (3,), np.uint8)
+        labels = rng.randint(0, 1000, HARNESS_IMAGES).astype(np.int64)
+        images = np.stack(parallel_map(distort_item, [(img, SEED + i) for i, img in
+                                                      enumerate(raw)], n_workers=4, chunksize=8))
+        images = imagenet_normalize(images)
+    prep_s = timer.totals["data"]
+    net = resnet.ResNet50(num_classes=1000).init_weights(torch.Generator().manual_seed(SEED))
+    cpu_model = ImageClassifier(copy.deepcopy(net))
+    metrics = {"acc": accuracy, "top5": top_k_accuracy}
+    harness = GenericHarness(ImageClassifier(net), F.cross_entropy, metrics, device=DEVICE)
+    dataset = ArrayDataset(images, labels, batch_size=HARNESS_BATCH, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_ms, first = [], [], None
+    batches = iter(BackgroundGenerator(iter(dataset)))
+    while True:
+        with timer.section("data"):
+            batch = next(batches, None)
+        if batch is None:
+            break
+        first = first or batch
+        with timer.section("step"):
+            t0 = time.perf_counter()
+            losses.append(harness.fit([batch])[-1]["loss"])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+    cpu_loss = GenericHarness(cpu_model, F.cross_entropy, device="cpu").fit([first])[-1]["loss"]
+    err = abs(losses[0] - cpu_loss) / abs(cpu_loss)
+    ms = float(np.median(step_ms[1:]))
+    log(f"library: GenericHarness fit over ResNet50 (1000 classes, {HARNESS_HW[0]}x"
+        f"{HARNESS_HW[1]}, batch {HARNESS_BATCH}, f32): {len(losses)} steps, losses "
+        f"{' '.join(f'{v:.4f}' for v in losses)}; step {ms:.2f} ms (median of steps 2-"
+        f"{len(step_ms)}; the first {step_ms[0]:.2f} ms) -> {1e3 / ms:.2f} steps/s, "
+        f"{HARNESS_BATCH / (ms / 1e3):.1f} images/s, peak memory {peak_gb():.2f} GB [{card}]")
+    log(f"library: first loss card {losses[0]:.6f} vs CPU {cpu_loss:.6f} (relative {err:.2e}, "
+        f"limit {HARNESS_RTOL:g})")
+    split = timer.summary()
+    log(f"library: SectionTimer: data {split['data']['total_s']:.2f} s ({prep_s:.2f} s of it "
+        f"distort_image in 4 spawned workers and imagenet_normalize over {HARNESS_IMAGES} "
+        f"images), step {split['step']['total_s']:.2f} s over {split['step']['count']} steps")
+    if len(losses) != HARNESS_IMAGES // HARNESS_BATCH or not np.isfinite(losses).all() \
+            or err > HARNESS_RTOL:
+        raise AssertionError(f"harness losses {losses}, CPU first loss {cpu_loss}")
+    scores = harness.evaluate(lambda: iter(dataset))
+    preds = harness.predict(images[:8])
+    log(f"library: evaluate {', '.join(f'{k} {v:.4f}' for k, v in scores.items())}; predict "
+        f"{preds.shape}")
+    if sorted(scores) != ["acc", "loss", "top5"] or not all(np.isfinite(list(scores.values()))) \
+            or not 0 <= scores["acc"] <= scores["top5"] <= 1:
+        raise AssertionError(f"evaluate gave {scores}")
+    if preds.shape != (8, 1000) or not np.isfinite(preds).all():
+        raise AssertionError(f"predict gave {preds.shape}")
+    del harness, net
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 63)
+    x = torch.randn((DEEP_RESNET_BATCH, 3) + HARNESS_HW, generator=gen, device=DEVICE)
+    for name in ("ResNet101", "ResNet152"):
+        model = getattr(resnet, name)().init_weights(torch.Generator().manual_seed(SEED)).to(DEVICE)
+        with torch.no_grad():
+            y = model(x)
+            fwd_ms = time_ms(lambda: model(x), warmup=2, iters=10)
+        log(f"library: {name} forward batch {DEEP_RESNET_BATCH} {HARNESS_HW[0]}x{HARNESS_HW[1]} "
+            f"f32: {tuple(y.shape)}, {fwd_ms:.2f} ms [{card}]")
+        if tuple(y.shape) != (DEEP_RESNET_BATCH, 1000) or not torch.isfinite(y).all():
+            raise AssertionError(f"{name} forward gave {tuple(y.shape)}")
+        del model
+    torch.cuda.empty_cache()
+
+
+def recurrent_sh_phase(card: str) -> None:
+    """19d: lstm, gru, rnn and a bidirectional GRU at RNN_SHAPE on the card
+    against the same layers on the CPU; sh_matrix_polar_torch at order 3
+    over SH_DIRECTIONS directions against numpy's sh_matrix_polar."""
+    from spatialaudiogen_tpu_torch.ambisonics.sh import sh_matrix_polar, sh_matrix_polar_torch
+    from spatialaudiogen_tpu_torch.models.recurrent import BidirectionalRecurrent, gru, lstm, rnn
+
+    b, t, f = RNN_SHAPE
+    gen = torch.Generator().manual_seed(SEED + 64)
+    x = torch.randn((b, t, f), generator=gen)
+    x_card = x.to(DEVICE)
+    for name, layer in (("lstm", lstm(f, f)), ("gru", gru(f, f)), ("rnn", rnn(f, f)),
+                        ("bidirectional gru", BidirectionalRecurrent(f, f, "gru"))):
+        with torch.no_grad():
+            for p in layer.parameters():
+                p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) / f ** 0.5)
+            want = layer(x)
+            layer.to(DEVICE)
+            got = layer(x_card)
+            ms = time_ms(lambda: layer(x_card), warmup=2, iters=10)
+        err = float((got.cpu() - want).abs().max())
+        log(f"library: {name} {tuple(x.shape)} -> {tuple(got.shape)} on the card: {ms:.3f} ms, "
+            f"max abs {err:.2e} from the CPU (limit {RNN_ATOL:g}) [{card}]")
+        if got.shape != want.shape or err > RNN_ATOL:
+            raise AssertionError(f"{name} on the card disagrees with the CPU: {err:.2e}")
+    rng = np.random.RandomState(SEED + 65)
+    phi = rng.uniform(-np.pi, np.pi, SH_DIRECTIONS)
+    nu = rng.uniform(-np.pi / 2, np.pi / 2, SH_DIRECTIONS)
+    want = sh_matrix_polar(phi, nu, 3)
+    for dtype, tol in ((torch.float64, 1e-10), (torch.float32, 1e-5)):
+        p_card = torch.tensor(phi, dtype=dtype, device=DEVICE)
+        n_card = torch.tensor(nu, dtype=dtype, device=DEVICE)
+        got = sh_matrix_polar_torch(p_card, n_card, 3)
+        ms = time_ms(lambda: sh_matrix_polar_torch(p_card, n_card, 3), warmup=2, iters=10)
+        err = float(np.abs(got.cpu().double().numpy() - want).max())
+        log(f"library: sh_matrix_polar_torch order 3 over {SH_DIRECTIONS} directions "
+            f"({str(dtype)[6:]}) on the card: {tuple(got.shape)}, {ms:.3f} ms, max abs "
+            f"{err:.2e} from numpy (limit {tol:g}) [{card}]")
+        if tuple(got.shape) != (SH_DIRECTIONS, 16) or err > tol:
+            raise AssertionError(f"sh_matrix_polar_torch ({dtype}) disagrees: {err:.2e}")
+
+
+def library_phase(card: str) -> dict:
+    """Phase 19 (module docstring). -> K1's and K2's launches in the traced
+    remat steps, read from the trace file, and K1's in the Hermitian
+    forward."""
+    (SCRATCH / "library").mkdir()
+    k1, k2 = remat_step_phase(card)
+    hermitian = hermitian_phase(card)
+    harness_phase(card)
+    recurrent_sh_phase(card)
+    return {"remat_trace_launches": (k1, k2), "hermitian_forward_launches": hermitian}
+
+
 def phase(fn, *args, **kwargs):
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
@@ -3026,6 +3406,7 @@ def main() -> int:
         order2 = phase(order2_phase, card)
         flow = phase(flow_phase, card)
         tools = phase(tools_phase, card)
+        library = phase(library_phase, card)
     finally:
         shutil.rmtree(SCRATCH, ignore_errors=True)
     # The top-level numbers are the "default" (bf16) route's, the one the
@@ -3048,14 +3429,17 @@ def main() -> int:
               "order2_launches": order2["launches"],
               "flow_deploy_launches": flow["launches"],
               "tf_import_deploy_launches": tools["tf_import_deploy_launches"],
-              "pack_train_launches": tools["pack_train_launches"][0]}, ()),
+              "pack_train_launches": tools["pack_train_launches"][0],
+              "remat_trace_launches": library["remat_trace_launches"][0],
+              "hermitian_forward_launches": library["hermitian_forward_launches"]}, ()),
             ("masked_istft_bwd", "masked_istft_bwd.cu", K2_REPLACES, k2_times,
              {"launches": train["bwd_launches"],
               "default_model_launches": default["bwd_launches"],
               "multi_device_launches": {what: [r[1] for r in ranks] if what != "tb"
                                         else ranks[1] for what, ranks in multi.items()},
               "order2_launches": order2["bwd_launches"],
-              "pack_train_launches": tools["pack_train_launches"][1]}, ()),
+              "pack_train_launches": tools["pack_train_launches"][1],
+              "remat_trace_launches": library["remat_trace_launches"][1]}, ()),
             ("masked_istft_nhwc", "masked_istft_nhwc.cu", K3_REPLACES, k3_times, k3,
              ("k1_ms",))):
         main, highest = times["flagship f32", "default"], times["flagship f32", "highest"]

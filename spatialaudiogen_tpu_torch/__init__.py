@@ -7,10 +7,13 @@ framework-free host modules it needs (dsp.geometry, data.readers/packed,
 utils.io_audio, ...). It imports torch and numpy, never jax and nothing of
 the JAX package.
 
-Covered so far: the flagship model's forward pass, the batch deploy engine
-(`deploy.deploy.MonoToAmbix`) and training on one device
-(`train.trainer.Trainer`, `cli.train`), with the fused masked comb-ISTFT
-and its fused backward as hand-written CUDA kernels (ops/csrc/).
+It covers all that the JAX package does: the model (with its remat and
+hermitian_dft configurations), deploy, training on one card or several,
+eval, streaming serving, the flow ETL, the tools around the model and the
+generic library (ResNets, recurrent layers, GenericHarness, image
+preprocessing, profiling). The JAX package's three Pallas kernels are
+hand-written CUDA kernels here (ops/csrc/); the JAX names with no
+counterpart are JAX machinery (ROADMAP.md lists each with its reason).
 """
 
 __version__ = "0.1.0"

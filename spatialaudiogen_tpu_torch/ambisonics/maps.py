@@ -154,7 +154,9 @@ class SphericalMapMachine:
 
 
 def spherical_power_maps(ambi, sph_mat, window_frames: int):
-    """Batched RMS maps on tensors: (B, T, C) x (G, C) -> (B, T//win, G)."""
+    """Batched RMS maps on tensors: (B, T, C) x (G, C) -> (B, T//win, G).
+    The counterpart of the JAX package's `spherical_power_maps_jnp`, on the
+    tensors' device."""
     b, t, c = ambi.shape
     n = t // window_frames
     x = torch.einsum("btc,gc->btg", ambi[:, : n * window_frames], sph_mat)

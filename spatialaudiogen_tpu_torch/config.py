@@ -53,6 +53,16 @@ class SptAudioGenConfig:
     # deconv emits the mask as (B, T, F, tracks), and K3 reads that crop in
     # place (masked_istft_nhwc).
     pallas_nhwc: bool = False
+    # Hermitian symmetry of the real input's spectrum: the analysis STFT
+    # and the masked synthesis run on wind/2+1 bins (exact algebra, half
+    # the DFT products), with the synthesis in plain matmuls
+    # (ops.dft.istft_from_masked_hermitian) where the full-bin model runs
+    # K1/K3, as the JAX model does. Off by default, as in JAX.
+    hermitian_dft: bool = False
+    # Recompute the audio encoder's and the visual encoders' activations
+    # in the backward pass (torch.utils.checkpoint) instead of keeping
+    # them: more forward work for less memory, for larger batches.
+    remat: bool = False
     # Compute dtype of the conv, deconv and FC products (None = float32,
     # or torch.bfloat16): params stay float32, BatchNorm statistics, the
     # sigmoid, the DFTs and the decode run in float32, the mask is stored

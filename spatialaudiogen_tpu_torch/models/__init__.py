@@ -1,1 +1,2 @@
-"""PyTorch model library: layer wrappers, ResNet18, SptAudioGen, weight bridge."""
+"""PyTorch model library: layer wrappers, ResNets, SptAudioGen, weight bridge,
+recurrent and embedding layers, classification metrics, the model protocol."""

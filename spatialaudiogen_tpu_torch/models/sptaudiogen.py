@@ -17,6 +17,19 @@ instead: its last deconv then yields the mask as
 float32 params; the STFT, the sigmoid, the masked ISTFT and the decode stay
 float32, and the mask is stored bfloat16, as in the JAX model.
 
+`cfg.hermitian_dft` is the JAX model's half-spectrum configuration: the
+analysis STFT computes wind/2+1 bins, mirrored back to full bins before
+the audio encoder, and the masked synthesis runs
+ops.dft.istft_from_masked_hermitian (plain matmuls over the folded mask)
+in place of K1 or K3, as the JAX model takes istft_from_masked_hermitian
+in place of its Pallas kernels. That is another algorithm the
+configuration chooses, not a fallback: with the flag off, CUDA tensors go
+through K1/K2 or K3 as always. `cfg.remat` recomputes the audio encoder's
+and each visual ResNet18's activations in the backward pass
+(torch.utils.checkpoint), as the JAX model's nn.remat does; JAX's also
+covers the separation U-Net, which here stays outside the recomputed
+blocks with the masked ISTFT, so K1 and K2 launch once a step either way.
+
 Tensor trace at defaults (audio+video, unet_mask, order 1, batch B):
   audio (B, 52799, 1) -> stft frames [46:173) -> mag (B, 1, 127, 1024)
   conv stack -> (B,32,31,127)(B,64,15,31)(B,128,7,14)(B,256,5,10)(B,512,3,6)
@@ -31,6 +44,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from spatialaudiogen_tpu_torch.config import (
     AUDIO,
@@ -48,7 +62,12 @@ from spatialaudiogen_tpu_torch.models.layers import (
     init_weights,
 )
 from spatialaudiogen_tpu_torch.models.resnet import FILTERS, ResNet18
-from spatialaudiogen_tpu_torch.ops.dft import precision_scope, stft_real
+from spatialaudiogen_tpu_torch.ops.dft import (
+    istft_from_masked_hermitian,
+    mirror_hermitian_magnitude,
+    precision_scope,
+    stft_real,
+)
 from spatialaudiogen_tpu_torch.ops.masked_istft import masked_istft, masked_istft_nhwc
 
 # Audio U-Net architecture constants (model.py:162-164).
@@ -76,6 +95,22 @@ def visual_feature_hw(frame_hw) -> tuple[int, int]:
     for _ in range(5):
         h, w = -(-h // 2), -(-w // 2)
     return h, w
+
+
+def _recomputed(encoder: nn.Module, x, batch_stats: bool, update_stats: bool):
+    """encoder(x, batch_stats, update_stats) under torch.utils.checkpoint:
+    its activations are recomputed in the backward pass. The recompute runs
+    the forward again, so BatchNorm would move its running averages a
+    second time; only the first run updates them, as the JAX model's
+    functional nn.remat moves them once a step."""
+    first = [update_stats]
+
+    def run(inputs):
+        out = encoder(inputs, batch_stats, first[0])
+        first[0] = False
+        return out
+
+    return checkpoint(run, x, use_reentrant=False)
 
 
 class AudioEncoder(nn.Module):
@@ -158,8 +193,9 @@ class SeparationUNet(nn.Module):
         super().__init__()
         self.cfg = cfg
         g = cfg.geometry
-        # the JAX model's NHWC-mask branch (sptaudiogen.py:276-287)
-        self.nhwc = cfg.pallas_nhwc and g.num_in_channels == 1
+        # the JAX model's NHWC-mask branch (sptaudiogen.py:276-287), which
+        # the Hermitian configuration does not take
+        self.nhwc = cfg.pallas_nhwc and g.num_in_channels == 1 and not cfg.hermitian_dft
         self.add_module("fc-feats", Dense(in_features, AUDIO_FILTERS[-1], F.relu,
                                           dtype=cfg.dtype))
         out_filters = (cfg.sep_num_tracks * g.num_in_channels,) + AUDIO_FILTERS[:-1]
@@ -207,6 +243,11 @@ class SeparationUNet(nn.Module):
                                       4, cfg.pallas_precision)
             return x_sep[:, None, :, g.out_ss: g.out_tt]      # (B, 1, tracks, snd_dur)
         mask = mask.unflatten(1, (g.num_in_channels, cfg.sep_num_tracks))
+        if cfg.hermitian_dft:
+            # stft_re/stft_im hold the wind/2+1 non-redundant bins
+            x_sep = istft_from_masked_hermitian(stft_re[:, :, None], stft_im[:, :, None],
+                                                mask, 4, n_freqs=g.wind_size)
+            return x_sep[..., g.out_ss: g.out_tt]
         # CUDA tensors go through the fused kernels (K1 forward, K2
         # backward), CPU tensors through the plain version (the counterpart
         # of _pallas_enabled's "auto")
@@ -274,19 +315,28 @@ class SptAudioGen(nn.Module):
         cfg, g = self.cfg, self.cfg.geometry
         assert audio.shape[1] == g.snd_size, (audio.shape, g.snd_size)
         mono = audio.transpose(1, 2)                         # (B, n_in, snd_size)
-        # STFT only over the frames the network touches ([enc_ss, enc_tt))
-        re, im = stft_real(mono, g.wind_size, 4, g.enc_ss, g.n_enc_frames)
+        # STFT only over the frames the network touches ([enc_ss, enc_tt)),
+        # and only the non-redundant half-spectrum when hermitian_dft is on
+        re, im = stft_real(mono, g.wind_size, 4, g.enc_ss, g.n_enc_frames,
+                           half=cfg.hermitian_dft)
 
-        mag = torch.sqrt(re * re + im * im)                  # (B, n_in, T_enc, F)
+        mag = torch.sqrt(re * re + im * im)                  # (B, n_in, T_enc, F')
+        if cfg.hermitian_dft:
+            mag = mirror_hermitian_magnitude(mag)            # back to full bins
         if taps is not None:
             taps["stft_mag"] = mag.permute(0, 2, 3, 1)
-        enc = {AUDIO: self.audio_encoder(cast(mag, cfg.dtype))}
+        remat = cfg.remat and torch.is_grad_enabled()
+        mag = cast(mag, cfg.dtype)
+        enc = {AUDIO: (checkpoint(self.audio_encoder, mag, use_reentrant=False) if remat
+                       else self.audio_encoder(mag))}
         for name, frames in ((VIDEO, video), (FLOW, flow)):
             if name in cfg.encoders:
                 assert frames is not None, f"{name} encoder requires {name} input"
                 x = cast(frames.flatten(0, 1).permute(0, 3, 1, 2), cfg.dtype).contiguous()
-                enc[name] = getattr(self, f"{name}_encoder")(
-                    x, train or cfg.bn_batch_stats, update_stats)
+                encoder = getattr(self, f"{name}_encoder")
+                batch_stats = train or cfg.bn_batch_stats
+                enc[name] = (_recomputed(encoder, x, batch_stats, update_stats) if remat
+                             else encoder(x, batch_stats, update_stats))
         feats = self.bottleneck({k: (v[-1] if k == AUDIO else v)
                                  for k, v in enc.items()})
         weights, biases = self.localization(feats)

@@ -9,6 +9,11 @@ products.
 
   forward:  Re = (x*w) @ C,  Im = (x*w) @ S     with C/S = cos/sin(-2pi kn/N)
   inverse:  real(ifft(X))_n = (1/N) * (Re @ C + Im @ S)
+
+The Hermitian functions (`stft_real(..., half=True)`,
+`mirror_hermitian_magnitude`, `fold_hermitian_mask`,
+`istft_from_masked_hermitian`) work on the N/2+1 non-redundant bins of a
+real signal's spectrum (the model's `hermitian_dft`).
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from spatialaudiogen_tpu_torch.dsp.stft import frame_count, hann_window, loss_frame_windows
+from spatialaudiogen_tpu_torch.dsp.stft import frame_signal, hann_window, loss_frame_windows
 
 
 @functools.lru_cache(maxsize=8)
@@ -184,21 +189,15 @@ def frame_signal_range(x: torch.Tensor, wind_size: int, n_overlap: int,
     return x.unfold(-1, wind_size, hop)[..., t0: t0 + n_frames, :]
 
 
-def frame_signal(x: torch.Tensor, wind_size: int, n_overlap: int) -> torch.Tensor:
-    """(..., N) -> (..., n_frames, wind_size), frame t starting at t*hop,
-    with n_frames = n_overlap * (N // wind_size - 1) (dsp.stft.frame_count;
-    the JAX package's full framing). A strided view, no copy."""
-    hop = wind_size // n_overlap
-    n_frames = frame_count(x.shape[-1], wind_size, n_overlap)
-    return x.unfold(-1, wind_size, hop)[..., :n_frames, :]
-
-
 def stft_real(x: torch.Tensor, wind_size: int, n_overlap: int,
-              frame_start: int | None = None, n_frames: int | None = None):
+              frame_start: int | None = None, n_frames: int | None = None,
+              half: bool = False):
     """Real-arithmetic STFT: (..., N) -> (Re, Im), each (..., n_frames, wind).
 
     With frame_start/n_frames only that frame range is framed and
-    transformed; without them, the full framing (frame_signal)."""
+    transformed; without them, the full framing (dsp.stft.frame_signal).
+    half=True computes only the wind/2+1 non-redundant bins of the real
+    input (the rest are conjugate mirrors): half the analysis product."""
     if (n_frames is None) != (frame_start is None):
         raise ValueError("frame_start and n_frames go together")
     if frame_start is not None:
@@ -207,7 +206,20 @@ def stft_real(x: torch.Tensor, wind_size: int, n_overlap: int,
         frames = frame_signal(x, wind_size, n_overlap)
     frames = frames * _window(wind_size, x.device, x.dtype)
     c, s = basis(wind_size, x.device, x.dtype)
+    if half:
+        c, s = c[:, : wind_size // 2 + 1], s[:, : wind_size // 2 + 1]
     return torch.matmul(frames, c), torch.matmul(frames, s)
+
+
+def mirror_hermitian_magnitude(mag_h: torch.Tensor) -> torch.Tensor:
+    """(..., n/2+1) magnitudes of a real signal -> full (..., n) via symmetry."""
+    return torch.cat([mag_h, mag_h[..., 1:-1].flip(-1)], dim=-1)
+
+
+def stft_magnitude(x: torch.Tensor, wind_size: int, n_overlap: int) -> torch.Tensor:
+    """|STFT|: (..., N) -> (..., n_frames, wind)."""
+    re, im = stft_real(x, wind_size, n_overlap)
+    return torch.sqrt(re * re + im * im)
 
 
 def stft_for_loss_real(signal: torch.Tensor, window: int, n_overlap: int):
@@ -246,3 +258,42 @@ def _overlap_add(x: torch.Tensor, n_overlap: int) -> torch.Tensor:
         start = (n_overlap - 1 - k) * hop
         acc = acc + x[..., k, start: start + out_len]
     return acc / float(n_overlap)
+
+
+def istft_from_masked(re: torch.Tensor, im: torch.Tensor, mask: torch.Tensor,
+                      n_overlap: int) -> torch.Tensor:
+    """Masked ISTFT in real arithmetic: a real `mask` that broadcasts
+    against the (..., T, F) spectra (e.g. per-track masks with a leading
+    track axis) scales Re and Im, then the comb ISTFT (reference
+    model.py:334-341)."""
+    return istft_real(re * mask, im * mask, n_overlap)
+
+
+def fold_hermitian_mask(mask: torch.Tensor) -> torch.Tensor:
+    """Fold a real per-bin mask over Hermitian symmetry: (..., n) -> (..., n/2+1).
+
+    For a real analysis signal, X[n-k] = conj(X[k]), and a real mask M gives
+    real(ifft(M*X))_t = (1/n) sum_k M'_k (ReX_k cos(2pi k t/n)
+                                          - ImX_k sin(2pi k t/n))
+    with M'_0 = M_0, M'_{n/2} = M_{n/2}, M'_k = M_k + M_{n-k} otherwise:
+    the synthesis only ever sees the folded mask on n/2+1 bins. Exact."""
+    h = mask.shape[-1] // 2
+    mid = mask[..., 1:h] + mask[..., h + 1:].flip(-1)
+    return torch.cat([mask[..., :1], mid, mask[..., h:h + 1]], dim=-1)
+
+
+def istft_from_masked_hermitian(re_h: torch.Tensor, im_h: torch.Tensor,
+                                mask: torch.Tensor, n_overlap: int,
+                                n_freqs: int) -> torch.Tensor:
+    """Masked comb ISTFT over the n/2+1 non-redundant bins only.
+
+    re_h/im_h: (..., T, n/2+1) spectra of a REAL analysis signal (stft_real
+    with half=True); mask: real (..., T, n) full-bin mask. The same function
+    as istft_from_masked on the full spectrum, at half the synthesis
+    product."""
+    m = fold_hermitian_mask(mask)
+    c2, s2 = (device_constant((name, n_freqs), lambda i=i: _half_basis(n_freqs)[i],
+                              re_h.device, re_h.dtype)
+              for i, name in enumerate(("half_cos", "half_sin")))
+    x = (torch.matmul(re_h * m, c2) - torch.matmul(im_h * m, s2)) / float(n_freqs)
+    return _overlap_add(x, n_overlap)

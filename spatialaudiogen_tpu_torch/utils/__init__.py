@@ -1,2 +1,2 @@
 """Host-side utilities: wav and position-file I/O, resampling, the
-native-library loader, metric logging."""
+native-library loader, metric logging, profiling."""

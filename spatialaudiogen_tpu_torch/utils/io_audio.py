@@ -1,15 +1,19 @@
-"""WAV audio I/O without external native deps (the port's copy of the parts
-of spatialaudiogen_tpu.utils.io_audio it calls).
+"""WAV audio I/O without external native deps (the port's copy of
+spatialaudiogen_tpu.utils.io_audio).
 
 `load_wav` returns float (frames, channels) in [-1, 1] and resamples if a
 target rate is given; `save_wav` writes 16-bit PCM or float32. Reading
-handles PCM 8/16/24/32 and IEEE float 32/64 RIFF files directly.
+handles PCM 8/16/24/32 and IEEE float 32/64 RIFF files directly. The
+ffmpeg-backed helpers (`convert_to_wav`, the streaming `FfmpegAudioReader`)
+need the ffmpeg binary on PATH.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import struct
+import subprocess
 
 import numpy as np
 
@@ -144,3 +148,68 @@ def wav_info(path: str):
         _, data_size = chunks[b"data"]
     return data_size // block_align, n_channels, rate
 
+
+
+def convert_to_wav(input_fn: str, output_fn: str, rate: int | None = None,
+                   n_channels: int | None = None):
+    """Transcode any media file to wav via ffmpeg (host subprocess)."""
+    cmd = ["ffmpeg", "-y", "-i", input_fn, "-vn"]
+    if rate is not None:
+        cmd += ["-ar", str(rate)]
+    if n_channels is not None:
+        cmd += ["-ac", str(n_channels)]
+    cmd += [output_fn]
+    subprocess.run(cmd, check=True, capture_output=True)
+    return output_fn
+
+
+class FfmpegAudioReader:
+    """Streaming audio reader over any container via an ffmpeg pipe.
+
+    Capability parity with the reference's ffmpeg-backed AudioReader
+    (pyutils/iolib/audio.py:52-142): decodes to float32 PCM on the fly with
+    optional seek/resample, yielding fixed-size chunks without materializing
+    the full file. Requires the ffmpeg binary.
+    """
+
+    def __init__(self, input_fn: str, rate: int = 48000, n_channels: int = 4,
+                 seek: float = 0.0):
+        if shutil.which("ffmpeg") is None:
+            raise RuntimeError("ffmpeg not found on PATH")
+        self.rate = int(rate)
+        self.n_channels = int(n_channels)
+        cmd = ["ffmpeg", "-v", "quiet"]
+        if seek > 0:
+            cmd += ["-ss", f"{seek:.6f}"]
+        cmd += ["-i", input_fn, "-vn", "-ar", str(self.rate),
+                "-ac", str(self.n_channels), "-f", "f32le", "pipe:1"]
+        self._proc = subprocess.Popen(cmd, stdout=subprocess.PIPE)
+
+    def get_chunk(self, n_frames: int):
+        """Next (n_frames, n_channels) float32 chunk; None at EOF."""
+        want = n_frames * self.n_channels * 4
+        buf = self._proc.stdout.read(want)
+        if not buf:
+            return None
+        data = np.frombuffer(buf, dtype="<f4")
+        frames = data.size // self.n_channels
+        return data[: frames * self.n_channels].reshape(frames, self.n_channels)
+
+    def loop_chunks(self, n_frames: int):
+        while True:
+            chunk = self.get_chunk(n_frames)
+            if chunk is None:
+                break
+            yield chunk
+
+    def close(self):
+        if self._proc.poll() is None:
+            self._proc.kill()
+        self._proc.wait()
+        self._proc.stdout.close()
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:
+            pass

@@ -23,11 +23,12 @@ from spatialaudiogen_tpu_torch.ambisonics import rotation
 from spatialaudiogen_tpu_torch.data.generic import BackgroundGenerator
 from spatialaudiogen_tpu_torch.data.pipeline import Feeder, device_prefetch
 from spatialaudiogen_tpu_torch.data.readers import SampleReader, img_prep_u8
-from spatialaudiogen_tpu_torch.dsp import geometry, stft
+from spatialaudiogen_tpu_torch.dsp import geometry
 from spatialaudiogen_tpu_torch.utils import io_audio
 
-# the JAX package's dsp/__init__ re-exports a function named `stft`
+# each package's dsp/__init__ re-exports a function named `stft`
 jax_stft = importlib.import_module("spatialaudiogen_tpu.dsp.stft")
+stft = importlib.import_module("spatialaudiogen_tpu_torch.dsp.stft")
 
 
 @pytest.fixture(scope="module")

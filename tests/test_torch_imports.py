@@ -90,7 +90,10 @@ def test_every_module_imports_without_jax_or_nvcc():
                  "cli.import_tf_checkpoint", "cli.export_to_tf_bundle", "data.packed",
                  "data.synthetic", "ambisonics.encoder", "ambisonics.binauralizer",
                  "ambisonics.binaural_filters", "ambisonics.hrir", "ambisonics.tdesigns",
-                 "cli.encode", "cli.binauralize", "cli.encode_and_binauralize"):
+                 "cli.encode", "cli.binauralize", "cli.encode_and_binauralize",
+                 "data.image_prep", "data.generic", "models.recurrent", "models.embedding",
+                 "models.classification_metrics", "models.interface", "models.resnet",
+                 "train.harness", "utils.profiling"):
         assert f"spatialaudiogen_tpu_torch.{name}" in out["modules"], name
     assert out["forbidden"] == [], out["forbidden"]
     # the card's host has no Pillow, OpenCV or scikit-learn: nothing of the
