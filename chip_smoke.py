@@ -162,7 +162,7 @@ the first phase that goes wrong:
      batched by ArrayDataset through a BackgroundGenerator, 4 fit steps
      (the first loss within HARNESS_RTOL of a CPU harness from the same
      weights), evaluate with accuracy and top_k_accuracy, predict; step
-     ms, images/s, peak memory and SectionTimer's data / step split;
+     ms, images/s, peak memory and the tracer's data / step split;
      ResNet101 and ResNet152 forwards at batch 8; lstm, gru, rnn and a
      bidirectional GRU at (32, 100, 512) against the CPU (RNN_ATOL), and
      sh_matrix_polar_torch at order 3 over 10^5 directions against
@@ -3211,17 +3211,17 @@ def harness_phase(card: str) -> None:
         top_k_accuracy,
     )
     from spatialaudiogen_tpu_torch.train.harness import GenericHarness
-    from spatialaudiogen_tpu_torch.utils.profiling import SectionTimer
+    from spatialaudiogen_tpu_torch.utils.profiling import TRACER, span
 
-    timer = SectionTimer()
+    TRACER.start()
     rng = np.random.RandomState(SEED + 62)
-    with timer.section("data"):
+    with span("data"):
         raw = rng.randint(0, 256, (HARNESS_IMAGES,) + HARNESS_SOURCE_HW + (3,), np.uint8)
         labels = rng.randint(0, 1000, HARNESS_IMAGES).astype(np.int64)
         images = np.stack(parallel_map(distort_item, [(img, SEED + i) for i, img in
                                                       enumerate(raw)], n_workers=4, chunksize=8))
         images = imagenet_normalize(images)
-    prep_s = timer.totals["data"]
+    prep_s = TRACER.snapshot().summary()["data"]["total_s"]
     net = resnet.ResNet50(num_classes=1000).init_weights(torch.Generator().manual_seed(SEED))
     cpu_model = ImageClassifier(copy.deepcopy(net))
     metrics = {"acc": accuracy, "top5": top_k_accuracy}
@@ -3231,12 +3231,12 @@ def harness_phase(card: str) -> None:
     losses, step_ms, first = [], [], None
     batches = iter(BackgroundGenerator(iter(dataset)))
     while True:
-        with timer.section("data"):
+        with span("data"):
             batch = next(batches, None)
         if batch is None:
             break
         first = first or batch
-        with timer.section("step"):
+        with span("step"):
             t0 = time.perf_counter()
             losses.append(harness.fit([batch])[-1]["loss"])
             torch.cuda.synchronize()
@@ -3251,8 +3251,8 @@ def harness_phase(card: str) -> None:
         f"{HARNESS_BATCH / (ms / 1e3):.1f} images/s, peak memory {peak_gb():.2f} GB [{card}]")
     log(f"library: first loss card {losses[0]:.6f} vs CPU {cpu_loss:.6f} (relative {err:.2e}, "
         f"limit {HARNESS_RTOL:g})")
-    split = timer.summary()
-    log(f"library: SectionTimer: data {split['data']['total_s']:.2f} s ({prep_s:.2f} s of it "
+    split = TRACER.stop().summary()
+    log(f"library: the tracer: data {split['data']['total_s']:.2f} s ({prep_s:.2f} s of it "
         f"distort_image in 4 spawned workers and imagenet_normalize over {HARNESS_IMAGES} "
         f"images), step {split['step']['total_s']:.2f} s over {split['step']['count']} steps")
     if len(losses) != HARNESS_IMAGES // HARNESS_BATCH or not np.isfinite(losses).all() \

@@ -30,6 +30,7 @@ import numpy as np
 
 from spatialaudiogen_tpu_torch.data.providers import FilenameProvider
 from spatialaudiogen_tpu_torch.data.readers import SampleReader, img_prep_default
+from spatialaudiogen_tpu_torch.utils import profiling
 
 _REPO_ROOT = os.path.realpath(os.path.join(os.path.dirname(__file__), "..", ".."))
 DEFAULT_LAYOUTS = os.path.join(_REPO_ROOT, "meta", "audio_layouts.txt")
@@ -246,7 +247,8 @@ class Feeder:
         items = []
         while True:
             try:
-                items.append(self._queue.get(timeout=0.2))
+                with profiling.span("feeder.wait"):
+                    items.append(self._queue.get(timeout=0.2))
             except queue.Empty:
                 self._raise_worker_errors()
                 if self._starved.is_set():
@@ -287,9 +289,11 @@ def device_prefetch(batch_iter, device, depth: int = 2, drop_keys=("id",)):
     """Copy batches to `device` `depth` batches ahead of the consumer
     (replaces the TF queue's CPU->GPU dequeue hop, feeder.py:369-370).
 
-    On a CUDA device each array is pinned and copied with non_blocking=True
-    on the current stream, so the copy of batch i+1 and i+2 overlaps the
-    step on batch i; on the CPU the arrays are wrapped without a copy.
+    On a CUDA device each array is pinned (span `train.pin`) and copied
+    with non_blocking=True on the current stream (span `train.h2d`), so the
+    copy of batch i+1 and i+2 overlaps the step on batch i; on the CPU the
+    arrays are wrapped without a copy. The counter `train.h2d_bytes` adds
+    the bytes of every array handed to the device, copied or not.
     Yields (device batch dict, host-only keys dict)."""
     import collections
 
@@ -305,8 +309,12 @@ def device_prefetch(batch_iter, device, depth: int = 2, drop_keys=("id",)):
             if k in drop_keys:
                 continue
             t = torch.from_numpy(np.ascontiguousarray(v))
+            profiling.count("train.h2d_bytes", t.nbytes)
             if device.type == "cuda":
-                t = t.pin_memory().to(device, non_blocking=True)
+                with profiling.span("train.pin"):
+                    t = t.pin_memory()
+                with profiling.span("train.h2d"):
+                    t = t.to(device, non_blocking=True)
             dev[k] = t
         return dev, host_keys
 

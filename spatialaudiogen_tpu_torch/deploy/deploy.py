@@ -29,6 +29,17 @@ Both routes run cuDNN's deterministic algorithms (deterministic_cudnn), so
 the same window gives the same bits on every run: the streaming server
 (deploy/stream.py) promises to equal a batch-1 deploy bit for bit.
 
+Spans (utils.profiling): a call is `deploy.call` (id = the engine's call
+count) holding `deploy.reader` (opening the clip), and per batch
+`deploy.wait` (blocked on the background reader), `deploy.upload`,
+`deploy.forward` (the forward's launch and the start of its copy back) and
+`deploy.drain` (the wait for a copy and the store), then `deploy.join`
+(the output assembled); the reader thread records `deploy.read` per batch
+under the call's id. Counters: `deploy.windows`, `deploy.lanes` (the batch
+size per batch, so lanes - windows are pad lanes), and `deploy.h2d_bytes`
+and `deploy.d2h_bytes` (the bytes handed to and fetched from the device,
+copied or not).
+
 Host buffers are pinned and the copies are non-blocking: decode runs in a
 background thread and the copy back of a batch's predictions is read two
 batches after it was issued, so the host and the card overlap.
@@ -44,6 +55,7 @@ real ones wherever they sit, as on one card.
 
 from __future__ import annotations
 
+import itertools
 import os
 from collections import deque
 
@@ -63,6 +75,7 @@ from spatialaudiogen_tpu_torch.parallel.mesh import (
     row_block,
     shard_model,
 )
+from spatialaudiogen_tpu_torch.utils import profiling
 from spatialaudiogen_tpu_torch.utils.io_audio import pcm16_exact
 
 DEPLOY_DURATION = 0.1  # deploy.py:49
@@ -171,6 +184,7 @@ class MonoToAmbix:
         self.model.to(self.device).eval()
         self._n_out = self.geometry.num_ambi_channels - self.geometry.num_in_channels
         self._rows = row_block(batch_size, self.mesh)   # this rank's lanes of a batch
+        self._calls = 0                                  # deploy() calls: the span id
 
     # ------------------------------------------------------------------
     @torch.no_grad()
@@ -193,8 +207,6 @@ class MonoToAmbix:
         audio = windows[rel.clamp(min=0)].transpose(1, 2) * valid[:, None, None]
         return self.model(audio, video_input(video_u8, valid, dtype))
 
-    @torch.no_grad()
-    @deterministic_cudnn()
     def fwd_windows(self, audio: np.ndarray, video: np.ndarray | None,
                     flow: np.ndarray | None) -> torch.Tensor:
         """Forward over host-assembled float32 windows (flow configs):
@@ -203,9 +215,18 @@ class MonoToAmbix:
         _upload does; -> (B, snd_dur, n_out) float32 on the engine's
         device. The batch deploy's host route and the stream's flow route
         share it, so a batch-1 stream equals a batch-1 deploy bit for bit."""
+        return self._fwd_uploaded(*self._upload_windows(audio, video, flow))
+
+    def _upload_windows(self, *arrays) -> list:
+        """fwd_windows' upload: each array to the device in the model's
+        dtype (None stays None)."""
         dtype = next(self.model.parameters()).dtype   # float32 unless .double()d
-        audio, video, flow = (None if x is None else self._upload(x).to(dtype)
-                              for x in (audio, video, flow))
+        return [None if x is None else self._upload(x).to(dtype) for x in arrays]
+
+    @torch.no_grad()
+    @deterministic_cudnn()
+    def _fwd_uploaded(self, audio: torch.Tensor, video: torch.Tensor | None,
+                      flow: torch.Tensor | None) -> torch.Tensor:
         return self.model(audio, video, flow).float()
 
     def _reader(self, input_folder: str, start: float, duration: float | None):
@@ -232,9 +253,10 @@ class MonoToAmbix:
             reader.chunks_t = [t - dt for t in reader.chunks_t]
         return reader
 
-    def _span_batches(self, reader, input_folder: str):
+    def _span_batches(self, reader, input_folder: str, trace_id=None):
         """Host side: per batch, one contiguous mono span + int32 window
-        offsets + uint8 frames (runs in a background thread)."""
+        offsets + uint8 frames (runs in a background thread; each batch a
+        `deploy.read` span under `trace_id`)."""
         g = self.geometry
         rate = self.cfg.audio_rate
         B = self.batch_size
@@ -274,8 +296,8 @@ class MonoToAmbix:
 
         ts = reader.chunks_t
         ar = reader.audio_reader
-        for k in range(0, len(ts), B):
-            batch_ts = ts[k: k + B]
+
+        def read(batch_ts):
             n = len(batch_ts)
             starts = [g.chunk_start_sample(t) for t in batch_ts]
             rel = np.array(starts, np.int64) - starts[0]
@@ -292,7 +314,12 @@ class MonoToAmbix:
             i16 = pcm16_exact(span)
             if i16 is not None:
                 span = i16
-            yield n, span, rel, video_u8, mono
+            return n, span, rel, video_u8, mono
+
+        for k in range(0, len(ts), B):
+            with profiling.span("deploy.read", trace_id):
+                batch = read(ts[k: k + B])
+            yield batch
 
     def _upload(self, arr: np.ndarray | None) -> torch.Tensor | None:
         if arr is None:
@@ -325,6 +352,7 @@ class MonoToAmbix:
             out = all_gather_rows(out, self.mesh)
             if not self.mesh.is_primary:
                 return None, None
+        profiling.count("deploy.d2h_bytes", out.nbytes)
         if self.device.type != "cuda":
             return out, None
         host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
@@ -343,6 +371,25 @@ class MonoToAmbix:
             host = gather_host_rows(host, self.mesh)
         return host
 
+    @staticmethod
+    def _batches(gen):
+        """Iterate the batches `gen` makes in a background thread, each wait
+        for the next a `deploy.wait` span."""
+        it = iter(BackgroundGenerator(gen, depth=2))
+        while True:
+            with profiling.span("deploy.wait"):
+                item = next(it, None)
+            if item is None:
+                return
+            yield item
+
+    def _count_batch(self, n: int, arrays) -> None:
+        """A batch's counters: its real windows, its lanes and the bytes of
+        this rank's `arrays` handed to the device."""
+        profiling.count("deploy.windows", n)
+        profiling.count("deploy.lanes", self.batch_size)
+        profiling.count("deploy.h2d_bytes", sum(a.nbytes for a in arrays if a is not None))
+
     def _predict_span(self, input_folder: str, start: float, duration: float | None):
         """One sliding pass -> (mono (N, n_in), pred (N, n_out)): flow
         configs through per-window host assembly, the others through the
@@ -351,12 +398,13 @@ class MonoToAmbix:
             return self._predict_span_ondevice(input_folder, start, duration)
         return self._predict_span_host(input_folder, start, duration)
 
-    def _window_batches(self, reader):
+    def _window_batches(self, reader, trace_id=None):
         """Host-side batch assembly of whole windows (flow configs; runs in
         a background thread so window reads overlap the card): per batch
         (n real windows, audio (B, snd_size, n_in), video, flow
-        (B, T, H, W, 3) float32 or None, mono passthrough). A partial last
-        batch is padded with zero windows, as the JAX engine pads it."""
+        (B, T, H, W, 3) float32 or None, mono passthrough), each a
+        `deploy.read` span under `trace_id`. A partial last batch is padded
+        with zero windows, as the JAX engine pads it."""
         g = self.geometry
         n_in = g.num_in_channels
         batch = {"ambix": [], "video": [], "flow": []}
@@ -381,35 +429,44 @@ class MonoToAmbix:
                 stack.clear()
             return n, np.ascontiguousarray(ambix[:, :, :n_in]), video, flow, mono
 
-        for chunk in reader.loop_chunks():
-            for key in batch:
-                if key in chunk:
-                    batch[key].append(chunk[key])
-            if len(batch["ambix"]) == self.batch_size:
-                yield assemble()
-        if batch["ambix"]:
-            yield assemble()
+        chunks = iter(reader.loop_chunks())
+        while True:
+            with profiling.span("deploy.read", trace_id):
+                for chunk in itertools.islice(chunks, self.batch_size):
+                    for key in batch:
+                        if key in chunk:
+                            batch[key].append(chunk[key])
+                item = assemble() if batch["ambix"] else None
+            if item is None:
+                return
+            yield item
 
     def _predict_span_host(self, input_folder: str, start: float, duration: float | None):
         """One sliding pass through per-window host assembly (the JAX
         engine's _predict_span_host) -> (mono (N, n_in), pred (N, n_out))."""
         g = self.geometry
-        reader = self._reader(input_folder, start, duration)
+        with profiling.span("deploy.reader"):
+            reader = self._reader(input_folder, start, duration)
         monos, preds = [], []
         pending = deque()   # (n, host tensor, copy-done event): one batch behind
 
         def drain(n, host, done):
-            host = self._copied(host, done)
-            if host is not None:
-                preds.append(host[:n].numpy().reshape(n * g.snd_dur, -1))
+            with profiling.span("deploy.drain"):
+                host = self._copied(host, done)
+                if host is not None:
+                    preds.append(host[:n].numpy().reshape(n * g.snd_dur, -1))
 
         rows = self._rows
-        for n, audio, video, flow, mono in BackgroundGenerator(
-                self._window_batches(reader), depth=2):
+        for n, audio, video, flow, mono in self._batches(
+                self._window_batches(reader, profiling.TRACER.current_id())):
             monos.append(mono)
-            out = self.fwd_windows(*(None if x is None else np.ascontiguousarray(x[rows])
-                                     for x in (audio, video, flow)))
-            pending.append((n,) + self._copy_back(out))
+            local = [None if x is None else np.ascontiguousarray(x[rows])
+                     for x in (audio, video, flow)]
+            with profiling.span("deploy.upload"):
+                self._count_batch(n, local)
+                dev = self._upload_windows(*local)
+            with profiling.span("deploy.forward"):
+                pending.append((n,) + self._copy_back(self._fwd_uploaded(*dev)))
             if len(pending) > 1:
                 drain(*pending.popleft())
         while pending:
@@ -423,7 +480,8 @@ class MonoToAmbix:
         """One sliding pass through the on-device window gather (configs
         without flow) -> (mono (N, n_in), pred (N, n_out))."""
         g = self.geometry
-        reader = self._reader(input_folder, start, duration)
+        with profiling.span("deploy.reader"):
+            reader = self._reader(input_folder, start, duration)
         n_windows = len(reader.chunks_t)
         if not n_windows:
             raise ValueError(f"no windows to deploy in {input_folder}")
@@ -435,24 +493,28 @@ class MonoToAmbix:
 
         def drain(n, host, done):
             nonlocal pred_fill
-            host = self._copied(host, done)
-            if host is None:       # not rank 0 of a mesh
-                return
-            rows = n * g.snd_dur
-            # float16 -> float32 widening fuses into this store
-            pred_out[pred_fill: pred_fill + rows] = host[:n].numpy().reshape(rows, -1)
-            pred_fill += rows
+            with profiling.span("deploy.drain"):
+                host = self._copied(host, done)
+                if host is None:       # not rank 0 of a mesh
+                    return
+                rows = n * g.snd_dur
+                # float16 -> float32 widening fuses into this store
+                pred_out[pred_fill: pred_fill + rows] = host[:n].numpy().reshape(rows, -1)
+                pred_fill += rows
 
-        for n, span, rel, video_u8, mono in BackgroundGenerator(
-                self._span_batches(reader, input_folder), depth=2):
+        for n, span, rel, video_u8, mono in self._batches(
+                self._span_batches(reader, input_folder, profiling.TRACER.current_id())):
             mono_out[mono_fill: mono_fill + mono.shape[0]] = mono
             mono_fill += mono.shape[0]
             span, rel, video_u8 = self._local_span(span, rel, video_u8)
-            out = self.fwd_span(self._upload(span), self._upload(rel),
-                                self._upload(video_u8))
-            if self.f16_fetch:
-                out = out.half()
-            pending.append((n,) + self._copy_back(out))
+            with profiling.span("deploy.upload"):
+                self._count_batch(n, (span, rel, video_u8))
+                dev = (self._upload(span), self._upload(rel), self._upload(video_u8))
+            with profiling.span("deploy.forward"):
+                out = self.fwd_span(*dev)
+                if self.f16_fetch:
+                    out = out.half()
+                pending.append((n,) + self._copy_back(out))
             if len(pending) > 2:
                 drain(*pending.popleft())
         while pending:
@@ -469,25 +531,28 @@ class MonoToAmbix:
         followed by the predicted ones (a complete ACN layout); None on the
         ranks of a mesh other than rank 0."""
         g = self.geometry
-        mono, pred = self._predict_span(input_folder, deploy_start, deploy_duration)
-        if crossfade:
-            # second pass offset by half a window, Hann-blended
-            half = DEPLOY_DURATION / 2.0
-            mono2, pred2 = self._predict_span(input_folder, deploy_start + half,
-                                              deploy_duration)
-        if pred is None:
-            return None
-        if crossfade:
-            win = np.hanning(g.snd_dur)[:, None]
-            t = min(pred.shape[0], pred2.shape[0] + g.snd_dur // 2)
-            h1 = np.tile(win, (pred.shape[0] // g.snd_dur, 1))[:t]
-            blended = pred[:t] * h1
-            weight = h1.copy()
-            off = g.snd_dur // 2
-            h2 = np.tile(win, (pred2.shape[0] // g.snd_dur, 1))
-            n2 = min(pred2.shape[0], t - off)
-            blended[off: off + n2] += pred2[:n2] * h2[:n2]
-            weight[off: off + n2] += h2[:n2]
-            pred = blended / np.maximum(weight, 1e-3)
-            mono = mono[:t]
-        return np.concatenate([mono, pred], axis=1)
+        self._calls += 1
+        with profiling.span("deploy.call", self._calls):
+            mono, pred = self._predict_span(input_folder, deploy_start, deploy_duration)
+            if crossfade:
+                # second pass offset by half a window, Hann-blended
+                half = DEPLOY_DURATION / 2.0
+                mono2, pred2 = self._predict_span(input_folder, deploy_start + half,
+                                                  deploy_duration)
+            if pred is None:
+                return None
+            with profiling.span("deploy.join"):
+                if crossfade:
+                    win = np.hanning(g.snd_dur)[:, None]
+                    t = min(pred.shape[0], pred2.shape[0] + g.snd_dur // 2)
+                    h1 = np.tile(win, (pred.shape[0] // g.snd_dur, 1))[:t]
+                    blended = pred[:t] * h1
+                    weight = h1.copy()
+                    off = g.snd_dur // 2
+                    h2 = np.tile(win, (pred2.shape[0] // g.snd_dur, 1))
+                    n2 = min(pred2.shape[0], t - off)
+                    blended[off: off + n2] += pred2[:n2] * h2[:n2]
+                    weight[off: off + n2] += h2[:n2]
+                    pred = blended / np.maximum(weight, 1e-3)
+                    mono = mono[:t]
+                return np.concatenate([mono, pred], axis=1)

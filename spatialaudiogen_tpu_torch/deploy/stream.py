@@ -36,6 +36,7 @@ from spatialaudiogen_tpu_torch.config import FLOW, VIDEO
 from spatialaudiogen_tpu_torch.data.readers import raw_frame_indices
 from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix, deterministic_cudnn, video_input
 from spatialaudiogen_tpu_torch.parallel.mesh import gather_rows
+from spatialaudiogen_tpu_torch.utils import profiling
 
 FRAMES_FPS = 10.0  # the frames/ layout raw rate (preprocess.py:98-143)
 
@@ -408,6 +409,14 @@ class StreamBatcher:
     chunks, masks and frames each tick, and rank 0 gathers the
     predictions; tick() and flush() return the chunks on rank 0 and
     nothing on the others. capacity must divide over the ranks.
+
+    Spans (utils.profiling): `serve.push` per push() (id = the round it
+    feeds); per round `serve.tick` (id = the round) holding
+    `serve.assemble` (the emitting sessions' chunks and masks),
+    `serve.stage` (the frames), `serve.upload`, `serve.forward` and
+    `serve.fetch` (the predictions to the host, which waits for the card).
+    Counters: `serve.rounds`, `serve.lanes_emitting` and `serve.h2d_bytes`
+    (this rank's bytes handed to the device).
     """
 
     def __init__(self, model_dir: str, capacity: int = 16,
@@ -434,6 +443,7 @@ class StreamBatcher:
         self._warm: dict[int, bool] = {}   # lane buffer holds a valid window
         self._consumed: dict[int, int] = {}  # absolute sample index shipped
         self._next_sid = 0
+        self._round = 0                     # rounds run: the next round's span id
         self._free_lanes = list(range(capacity))
         n_local = self._lanes.stop - self._lanes.start
         self._buf = torch.zeros((n_local, self.geometry.snd_size), dtype=torch.float32,
@@ -449,8 +459,9 @@ class StreamBatcher:
         the rank that owns the lane)."""
         row = self._local_row(lane)
         if row is not None:
-            self._buf[row].copy_(self.engine._upload(
-                np.ascontiguousarray(window, dtype=np.float32)))
+            window = np.ascontiguousarray(window, dtype=np.float32)
+            profiling.count("serve.h2d_bytes", window.nbytes)
+            self._buf[row].copy_(self.engine._upload(window))
 
     # --- session management -------------------------------------------
     def add_session(self) -> int:
@@ -481,7 +492,8 @@ class StreamBatcher:
     def push(self, sid: int, samples: np.ndarray | None = None,
              frame: np.ndarray | None = None):
         """Buffer input for session `sid`; compute happens at tick()."""
-        self._sessions[sid].push(samples, frame)
+        with profiling.span("serve.push", self._round):
+            self._sessions[sid].push(samples, frame)
 
     # --- the batched tick ------------------------------------------------
     @torch.no_grad()
@@ -506,17 +518,22 @@ class StreamBatcher:
         g = self.geometry
         eng = self.engine
         dtype = next(eng.model.parameters()).dtype   # float32 unless .double()d
-        chunk_d, shift_d, valid_d = (eng._upload(x) for x in (chunk, do_shift, valid))
-        shifted = torch.cat([self._buf[:, g.snd_dur:], chunk_d], dim=1)
-        self._buf = torch.where(shift_d[:, None] > 0, shifted, self._buf)
-        valid_d = valid_d.to(dtype)
-        audio = (self._buf.to(dtype) * valid_d[:, None])[..., None]  # (C, snd_size, 1)
-        if video_u8 is not None:
-            video_u8 = video_u8.to(eng.device, non_blocking=True)
-        video = video_input(video_u8, valid_d, dtype)
-        out = eng.model(audio, video)
-        host = gather_rows(out.half() if eng.f16_fetch else out, self.mesh)
-        return None if host is None else host.numpy().astype(np.float32)
+        with profiling.span("serve.upload"):
+            profiling.count("serve.h2d_bytes", sum(
+                x.nbytes for x in (chunk, do_shift, valid, video_u8) if x is not None))
+            chunk_d, shift_d, valid_d = (eng._upload(x) for x in (chunk, do_shift, valid))
+            if video_u8 is not None:
+                video_u8 = video_u8.to(eng.device, non_blocking=True)
+        with profiling.span("serve.forward"):
+            shifted = torch.cat([self._buf[:, g.snd_dur:], chunk_d], dim=1)
+            self._buf = torch.where(shift_d[:, None] > 0, shifted, self._buf)
+            valid_d = valid_d.to(dtype)
+            audio = (self._buf.to(dtype) * valid_d[:, None])[..., None]  # (C, snd_size, 1)
+            video = video_input(video_u8, valid_d, dtype)
+            out = eng.model(audio, video)
+        with profiling.span("serve.fetch"):
+            host = gather_rows(out.half() if eng.f16_fetch else out, self.mesh)
+            return None if host is None else host.numpy().astype(np.float32)
 
     def _stage_frames(self, lane_frames: dict) -> torch.Tensor:
         """One tick's (capacity, ...) uint8 frames in host memory a copy to
@@ -542,7 +559,6 @@ class StreamBatcher:
         """Run batched forwards until no session has a ready window (or
         max_rounds). Returns {sid: [(snd_dur, 1+n_out) chunks...]} for
         sessions that emitted (rank 0 of a mesh; {} on the others)."""
-        g = self.geometry
         out: dict[int, list] = {}
         rounds = 0
         while max_rounds is None or rounds < max_rounds:
@@ -551,6 +567,23 @@ class StreamBatcher:
             if not emitting:
                 break
             rounds += 1
+            with profiling.span("serve.tick", self._round):
+                self._round += 1
+                host, metas = self._run_round(emitting)
+            if host is None:      # not rank 0 of a mesh
+                continue
+            for sid, lane, mono in metas:
+                chunkout = np.concatenate([mono, host[lane]], axis=1)
+                out.setdefault(sid, []).append(chunkout)
+        return out
+
+    def _run_round(self, emitting: list):
+        """One batched round over the emitting sessions -> (the
+        predictions on the host, None off rank 0; [(sid, lane, mono)])."""
+        g = self.geometry
+        profiling.count("serve.rounds")
+        profiling.count("serve.lanes_emitting", len(emitting))
+        with profiling.span("serve.assemble"):
             chunk = np.zeros((self.capacity, g.snd_dur), np.float32)
             do_shift = np.zeros((self.capacity,), np.float32)
             valid = np.zeros((self.capacity,), np.float32)
@@ -580,15 +613,10 @@ class StreamBatcher:
                     lane_frames[lane] = s.window_frames(k)
                 metas.append((sid, lane, s.window_mono(k)))
                 s.advance()
+        with profiling.span("serve.stage"):
             video_u8 = self._stage_frames(lane_frames) if self._needs_video else None
-            lanes = self._lanes
-            host = self._tick_fn(chunk[lanes], do_shift[lanes], valid[lanes], video_u8)
-            if host is None:      # not rank 0 of a mesh
-                continue
-            for sid, lane, mono in metas:
-                chunkout = np.concatenate([mono, host[lane]], axis=1)
-                out.setdefault(sid, []).append(chunkout)
-        return out
+        lanes = self._lanes
+        return self._tick_fn(chunk[lanes], do_shift[lanes], valid[lanes], video_u8), metas
 
     def flush(self, sid: int) -> dict:
         """End-of-stream for one session: pad its future context until all

@@ -7,6 +7,11 @@ every ckpt_every steps and at exit, and a SIGTERM stop at the next step
 boundary. Host threads feed a prefetcher that copies each batch to the
 card two batches ahead of the step.
 
+Each iteration is a `train.iter` span (utils.profiling; id = the step)
+holding `train.batch` (the prefetch: `train.pin`, `train.h2d`),
+`train.launch` (the train step's launch) and `train.log` (the log step's
+metric fetch and write).
+
 Multi-process runs (parallel.distributed.initialize before the Trainer)
 train on a ('data', 'model') mesh (parallel.mesh): cfg.batch_size is the
 global batch; each data rank feeds batch_size / n_data rows from its own
@@ -43,6 +48,7 @@ from spatialaudiogen_tpu_torch.train.checkpoint import (
 from spatialaudiogen_tpu_torch.train.lr import staircase_decay
 from spatialaudiogen_tpu_torch.train.state import create_train_state
 from spatialaudiogen_tpu_torch.train.steps import observe_step, train_step
+from spatialaudiogen_tpu_torch.utils import profiling
 from spatialaudiogen_tpu_torch.utils.logging import MetricLogger
 
 # Fields that define the network: on resume they come from the stored run.
@@ -190,32 +196,38 @@ class Trainer:
         try:
             t_prev = time.perf_counter()
             while state.step < cfg.n_iters and not self._stop_agreed():
-                local = next(stream)[0] if stream is not None else None
-                dev_batch = global_batch(local, self.mesh, self.device)
                 step = state.step
-                lr = self.lr_schedule(step)
-                metrics = train_step(state, dev_batch, lr, cfg.weight_decay, cfg.clip_norm)
-                if step % cfg.log_every == 0:
-                    # one copy of all metrics to the host; it waits for the
-                    # step, so the wall time per iteration is what tick records
-                    names = list(metrics)
-                    values = torch.stack([metrics[k].float() for k in names]).cpu()
-                    metrics = dict(zip(names, values.tolist()))
-                    metrics["lr"] = lr
-                    if math.isnan(metrics["total_loss"]):
-                        raise FloatingPointError(
-                            f"Training produced a NaN loss at step {step}.")
-                now = time.perf_counter()
-                self.logger.tick(now - t_prev)
-                t_prev = now
-                if step % cfg.log_every == 0:
-                    self.logger.log(step, metrics, cfg.batch_size)
-                if cfg.tb_histograms and step % cfg.tb_histograms == 0:
-                    self._log_histograms(step, dev_batch)
-                if cfg.ckpt_every and state.step % cfg.ckpt_every == 0:
-                    save_checkpoint(cfg.model_dir, state)
-                    if self.is_primary:
-                        print("=" * 60 + "\nCheckpoint saved\n" + "=" * 60)
+                with profiling.span("train.iter", step):
+                    with profiling.span("train.batch"):
+                        local = next(stream)[0] if stream is not None else None
+                    dev_batch = global_batch(local, self.mesh, self.device)
+                    lr = self.lr_schedule(step)
+                    with profiling.span("train.launch"):
+                        metrics = train_step(state, dev_batch, lr, cfg.weight_decay,
+                                             cfg.clip_norm)
+                    if step % cfg.log_every == 0:
+                        # one copy of all metrics to the host; it waits for the
+                        # step, so the wall time per iteration is what tick records
+                        with profiling.span("train.log"):
+                            names = list(metrics)
+                            values = torch.stack([metrics[k].float() for k in names]).cpu()
+                        metrics = dict(zip(names, values.tolist()))
+                        metrics["lr"] = lr
+                        if math.isnan(metrics["total_loss"]):
+                            raise FloatingPointError(
+                                f"Training produced a NaN loss at step {step}.")
+                    now = time.perf_counter()
+                    self.logger.tick(now - t_prev)
+                    t_prev = now
+                    if step % cfg.log_every == 0:
+                        with profiling.span("train.log"):
+                            self.logger.log(step, metrics, cfg.batch_size)
+                    if cfg.tb_histograms and step % cfg.tb_histograms == 0:
+                        self._log_histograms(step, dev_batch)
+                    if cfg.ckpt_every and state.step % cfg.ckpt_every == 0:
+                        save_checkpoint(cfg.model_dir, state)
+                        if self.is_primary:
+                            print("=" * 60 + "\nCheckpoint saved\n" + "=" * 60)
             completed = True
         finally:
             # a failed rank cannot join the other ranks' gathers: under

@@ -690,6 +690,69 @@ def test_device_trace_on_the_card(tmp_path):
 
 
 @pytest.mark.cuda
+def test_device_trace_of_a_deploy_carries_the_tracer_ranges(tmp_path):
+    """device_trace over a short deploy on the card: the trace file holds
+    the deploy engine's `sag.deploy.*` ranges beside the card's kernels, no
+    kernel or copy on the device is named `sag.*`, and the spans it hands
+    over name the same call."""
+    import json
+
+    from spatialaudiogen_tpu_torch.deploy.deploy import MonoToAmbix
+    from spatialaudiogen_tpu_torch.utils.profiling import TRACER, device_trace
+
+    _need_card()
+    model_dir, clip, _, _ = _serving_setup(tmp_path)
+    engine = MonoToAmbix(model_dir, batch_size=4)
+    engine.deploy(clip, 0.5, 0.5)
+    with device_trace(str(tmp_path / "trace"), device="cuda") as held:
+        engine.deploy(clip, 0.5, 0.5)
+    trace = held.trace
+    assert not TRACER.on
+    files = list((tmp_path / "trace").glob("*.pt.trace.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    host = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"sag.deploy.call", "sag.deploy.upload", "sag.deploy.forward",
+            "sag.deploy.drain"} <= host
+    device = [e["name"] for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                            "gpu_memset")]
+    assert device and not [n for n in device if n.startswith("sag.")]
+    assert {s.id for s in trace.of("deploy.call")} == {2}
+    assert len(trace.of("deploy.forward")) == 2 and trace.counters["deploy.windows"] == 5
+
+
+@pytest.mark.cuda
+def test_device_prefetch_on_the_card_records_the_pin_and_the_copy():
+    """On the card each array of a batch is pinned (`train.pin`) and copied
+    (`train.h2d`) under the caller's span, and `train.h2d_bytes` is the sum
+    of the arrays' bytes."""
+    import numpy as np
+
+    from spatialaudiogen_tpu_torch.data.pipeline import device_prefetch
+    from spatialaudiogen_tpu_torch.utils.profiling import TRACER, span
+
+    _need_card()
+    rng = np.random.default_rng(0)
+    batches = [{"ambix": rng.standard_normal((4, 64, 4)).astype(np.float32),
+                "video": rng.integers(0, 256, (4, 1, 8, 8, 3), dtype=np.uint8)}
+               for _ in range(2)]
+    TRACER.start()
+    stream = device_prefetch(iter(batches), "cuda")
+    with span("train.batch", 0):
+        dev, _ = next(stream)
+    rest = next(stream)[0]
+    torch.cuda.synchronize()
+    trace = TRACER.stop()
+    for got, want in ((dev, batches[0]), (rest, batches[1])):
+        assert all(got[k].is_cuda and np.array_equal(got[k].cpu().numpy(), want[k])
+                   for k in want)
+    pins, copies = trace.of("train.pin"), trace.of("train.h2d")
+    assert len(pins) == len(copies) == 4
+    assert {trace.spans[s.parent].name for s in pins + copies} == {"train.batch"}
+    assert trace.counters["train.h2d_bytes"] == sum(b[k].nbytes for b in batches for k in b)
+
+
+@pytest.mark.cuda
 def test_hermitian_forward_on_the_card():
     """The reduced flagship with hermitian_dft on, on the card: no K1 launch
     (the configuration's half-spectrum synthesis), within 1e-4 relative L2

@@ -2,7 +2,7 @@
 recurrent layers and their weight bridge, Embedding, the classification
 metrics, GenericHarness on tests/test_generic_lib.py's logistic regression,
 ArrayDataset / parallel_map, image_prep (against the cv2 path), the ffmpeg
-audio helpers (through a stub ffmpeg), sh_matrix_polar_torch, SectionTimer
+audio helpers (through a stub ffmpeg), sh_matrix_polar_torch, the tracer
 and device_trace, and the model interface protocol. Inputs are drawn from
 a seed with numpy; weights come across from flax's parameters.
 """
@@ -45,7 +45,7 @@ from spatialaudiogen_tpu_torch.models.recurrent import (
 from spatialaudiogen_tpu_torch.models.sptaudiogen import SptAudioGen
 from spatialaudiogen_tpu_torch.train.harness import GenericHarness
 from spatialaudiogen_tpu_torch.utils import io_audio
-from spatialaudiogen_tpu_torch.utils.profiling import SectionTimer, device_trace
+from spatialaudiogen_tpu_torch.utils.profiling import TRACER, device_trace, span
 
 torch.set_num_threads(1)
 
@@ -317,25 +317,42 @@ def test_sh_matrix_polar_torch_matches_jax_and_numpy():
 
 
 def test_section_timer_and_device_trace(tmp_path):
-    """SectionTimer's totals, counts and means; device_trace(device="cpu")
+    """The tracer's summary(): totals, counts, means and self time of
+    nested spans, started and stopped by hand; device_trace(device="cpu")
+    switches the tracer on for its block and hands over its spans, and
     writes one trace file that parses as a Chrome trace and holds the ops
-    of the block; asked for a CUDA trace without a card it raises."""
-    timer = SectionTimer()
+    of the block and the tracer's `sag.*` ranges, nested as the spans are;
+    asked for a CUDA trace without a card it raises."""
+    TRACER.start()
     for _ in range(3):
-        with timer.section("data"):
+        with span("data"):
             pass
-    with timer.section("step"):
-        torch.ones(3).sum()
-    summary = timer.summary()
+    with span("step"):
+        with span("step.inner"):
+            torch.ones(3).sum()
+    summary = TRACER.stop().summary()
     assert summary["data"]["count"] == 3 and summary["step"]["count"] == 1
     assert summary["data"]["mean_ms"] == pytest.approx(1000 * summary["data"]["total_s"] / 3)
-    with device_trace(str(tmp_path / "trace"), device="cpu"):
+    assert summary["step"]["self_s"] == pytest.approx(
+        summary["step"]["total_s"] - summary["step.inner"]["total_s"])
+    with device_trace(str(tmp_path / "trace"), device="cpu") as held:
+        assert TRACER.on
         a = torch.randn(32, 32)
-        torch.mm(a, a)
+        with span("outer"):
+            with span("mm"):
+                torch.mm(a, a)
+    assert not TRACER.on
+    assert [s.name for s in held.trace.spans] == ["mm", "outer"]
+    assert TRACER.take().spans == []
     files = list((tmp_path / "trace").glob("*.pt.trace.json"))
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any(e.get("name") == "aten::mm" for e in events)
+    ranges = {e["name"]: (e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("name", "").startswith("sag.")}
+    assert set(ranges) == {"sag.outer", "sag.mm"}
+    assert ranges["sag.outer"][0] <= ranges["sag.mm"][0] <= ranges["sag.mm"][1] \
+        <= ranges["sag.outer"][1]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):
             with device_trace(str(tmp_path / "cuda_trace")):
