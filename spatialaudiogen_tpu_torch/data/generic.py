@@ -43,12 +43,20 @@ class ArrayDataset:
 
 
 class BackgroundGenerator:
-    """Runs an iterator in a daemon thread, buffering up to `depth` items."""
+    """Runs an iterator in a daemon thread, buffering up to `depth` items.
+
+    An error the iterator raises is raised at the consumer's next `next()`.
+    `close()`, which the consumer's iteration also runs when it ends or is
+    closed, stops the thread at its next hand-over (an infinite iterator
+    too, once its current item is made), joins it and drops what the queue
+    holds."""
 
     _DONE = object()
+    _POLL_S = 0.05      # how often a hand-over blocked on a full queue looks for close()
 
     def __init__(self, iterable, depth: int = 4):
         self._queue: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, args=(iterable,), daemon=True)
         self._err = None
         self._thread.start()
@@ -56,20 +64,49 @@ class BackgroundGenerator:
     def _run(self, iterable):
         try:
             for item in iterable:
-                self._queue.put(item)
+                if not self._put(item):
+                    return
         except BaseException as e:  # surfaced on the consumer side
             self._err = e
         finally:
-            self._queue.put(self._DONE)
+            self._put(self._DONE)
+
+    def _put(self, item) -> bool:
+        """Queue `item`; False, with nothing queued, once close() was called."""
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=self._POLL_S)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def ready(self) -> bool:
+        """Whether the next item is queued already, so taking it will not wait."""
+        return not self._queue.empty()
 
     def __iter__(self):
+        try:
+            while True:
+                item = self._queue.get()
+                if item is self._DONE:
+                    if self._err is not None:
+                        raise self._err
+                    return
+                yield item
+        finally:
+            self.close()
+
+    def close(self):
+        """Stop the thread, join it and drop the items it queued."""
+        self._stop.set()
+        if self._thread is not threading.current_thread():    # a collector may run it there
+            self._thread.join()
         while True:
-            item = self._queue.get()
-            if item is self._DONE:
-                if self._err is not None:
-                    raise self._err
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
                 return
-            yield item
 
 
 def parallel_map(fn, items, n_workers: int = 4, chunksize: int = 1):

@@ -4,9 +4,9 @@ written for torch).
 
 Replaces the reference's Python-thread + TF PaddingFIFOQueue feeder
 (feeder.py:281-435) with a host-side worker pool feeding a bounded queue and
-a prefetcher that copies batches to the card from pinned memory two batches
-ahead, so decode overlaps device compute. Mode semantics mirror the
-reference:
+a prefetcher whose thread stages batches two ahead, through reused pinned
+slots and a copy stream of its own, so decode and upload overlap device
+compute. Mode semantics mirror the reference:
 
   train: every worker iterates a shuffled infinite epoch stream; each video
          visit samples 5 random chunks with random azimuth rotations
@@ -28,6 +28,7 @@ import threading
 
 import numpy as np
 
+from spatialaudiogen_tpu_torch.data.generic import BackgroundGenerator
 from spatialaudiogen_tpu_torch.data.providers import FilenameProvider
 from spatialaudiogen_tpu_torch.data.readers import SampleReader, img_prep_default
 from spatialaudiogen_tpu_torch.utils import profiling
@@ -285,49 +286,106 @@ class Feeder:
         return batch
 
 
+class _PinnedRing:
+    """The card's half of `device_prefetch`: pinned host slots for `size`
+    batches in turn, one per array, allocated at the first batch and again
+    only for an array whose shape or dtype changes; and the stream that
+    copies them to the card, off the stream the step runs on."""
+
+    def __init__(self, device, size: int):
+        import torch
+
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.slots = [{} for _ in range(size)]     # per entry: {key: pinned tensor}
+        self.copied = [None] * size                # per entry: the event after its copies
+
+    def upload(self, index: int, arrays: dict):
+        """Copy `arrays` (host tensors) into the slots of batch `index`'s
+        entry, once that entry's previous copies have ended, and queue their
+        copies to the card -> (device tensors, the event after the copies)."""
+        import torch
+
+        entry = index % len(self.slots)
+        if self.copied[entry] is not None:
+            self.copied[entry].synchronize()
+        slots = self.slots[entry]
+        out = {}
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            for k, t in arrays.items():
+                slot = slots.get(k)
+                if slot is None or slot.shape != t.shape or slot.dtype != t.dtype:
+                    slot = slots[k] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                with profiling.span("train.pin", index):
+                    slot.copy_(t)
+                with profiling.span("train.h2d", index):
+                    out[k] = slot.to(self.device, non_blocking=True)
+            copied = self.copied[entry] = torch.cuda.Event()
+            copied.record(self.stream)
+        return out, copied
+
+    def release(self):
+        """Wait for the copies in flight and let the slots go."""
+        self.stream.synchronize()
+        self.slots = [{} for _ in self.slots]
+        self.copied = [None] * len(self.copied)
+
+
 def device_prefetch(batch_iter, device, depth: int = 2, drop_keys=("id",)):
-    """Copy batches to `device` `depth` batches ahead of the consumer
+    """Stage batches for `device` `depth` batches ahead of the consumer
     (replaces the TF queue's CPU->GPU dequeue hop, feeder.py:369-370).
 
-    On a CUDA device each array is pinned (span `train.pin`) and copied
-    with non_blocking=True on the current stream (span `train.h2d`), so the
-    copy of batch i+1 and i+2 overlaps the step on batch i; on the CPU the
-    arrays are wrapped without a copy. The counter `train.h2d_bytes` adds
-    the bytes of every array handed to the device, copied or not.
-    Yields (device batch dict, host-only keys dict)."""
-    import collections
-
+    A staging thread (a BackgroundGenerator) pulls the batches. On a CUDA
+    device it copies each array into a pinned slot that it reuses `depth`
+    + 1 batches later (span `train.pin`) and queues the copy to the card on
+    a stream of its own (span `train.h2d`; both on the staging thread, with
+    the batch's index as id), then records an event; the consumer's stream
+    waits on that event and each device tensor is recorded on it, so the
+    copies overlap the step and the host never waits for the card. On the
+    CPU the arrays are wrapped without a copy. When the consumer takes a
+    batch, the counter `train.h2d_bytes` adds the bytes of its arrays and
+    `train.prefetch_ready` adds 1 if the batch was staged already (0 if the
+    consumer had to wait). An error of the iterator or of a copy is raised
+    at the consumer's next `next()`; closing the generator stops and joins
+    the thread, also over an infinite iterator.
+    Yields (device batch dict, host-only keys dict) in the iterator's order."""
     import torch
 
     device = torch.device(device)
-    buf = collections.deque()
+    ring = None
+    if device.type == "cuda":
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        ring = _PinnedRing(device, depth + 1)
 
-    def put(batch):
-        host_keys = {k: batch[k] for k in drop_keys if k in batch}
-        dev = {}
-        for k, v in batch.items():
-            if k in drop_keys:
-                continue
-            t = torch.from_numpy(np.ascontiguousarray(v))
-            profiling.count("train.h2d_bytes", t.nbytes)
-            if device.type == "cuda":
-                with profiling.span("train.pin"):
-                    t = t.pin_memory()
-                with profiling.span("train.h2d"):
-                    t = t.to(device, non_blocking=True)
-            dev[k] = t
-        return dev, host_keys
+    def staged():
+        for index, batch in enumerate(batch_iter):
+            host_keys = {k: batch[k] for k in drop_keys if k in batch}
+            arrays = {k: torch.from_numpy(np.ascontiguousarray(v))
+                      for k, v in batch.items() if k not in drop_keys}
+            copied = None
+            if ring is not None:
+                arrays, copied = ring.upload(index, arrays)
+            yield arrays, host_keys, copied
 
-    it = iter(batch_iter)
+    stager = BackgroundGenerator(staged(), depth=depth)
+    items = iter(stager)
     try:
-        for _ in range(depth):
-            buf.append(put(next(it)))
-    except StopIteration:
-        pass
-    while buf:
-        out = buf.popleft()
-        try:
-            buf.append(put(next(it)))
-        except StopIteration:
-            pass
-        yield out
+        while True:
+            ready = stager.ready()
+            item = next(items, None)
+            if item is None:
+                return
+            dev, host_keys, copied = item
+            profiling.count("train.prefetch_ready", int(ready))
+            if copied is not None:
+                current = torch.cuda.current_stream(device)
+                current.wait_event(copied)
+                for t in dev.values():
+                    t.record_stream(current)
+            profiling.count("train.h2d_bytes", sum(t.nbytes for t in dev.values()))
+            yield dev, host_keys
+    finally:
+        stager.close()
+        if ring is not None:
+            ring.release()

@@ -230,6 +230,8 @@ class Trainer:
                             print("=" * 60 + "\nCheckpoint saved\n" + "=" * 60)
             completed = True
         finally:
+            if stream is not None:      # stops the staging thread before its feeder
+                stream.close()
             # a failed rank cannot join the other ranks' gathers: under
             # several processes only a loop that ended cleanly saves
             if completed or not is_distributed():

@@ -723,9 +723,12 @@ def test_device_trace_of_a_deploy_carries_the_tracer_ranges(tmp_path):
 
 @pytest.mark.cuda
 def test_device_prefetch_on_the_card_records_the_pin_and_the_copy():
-    """On the card each array of a batch is pinned (`train.pin`) and copied
-    (`train.h2d`) under the caller's span, and `train.h2d_bytes` is the sum
-    of the arrays' bytes."""
+    """On the card each array of a batch is copied into its pinned slot
+    (`train.pin`) and queued to the card (`train.h2d`) on the staging
+    thread, with no parent and the batch's index as id, and
+    `train.h2d_bytes` is the sum of the arrays' bytes."""
+    import threading
+
     import numpy as np
 
     from spatialaudiogen_tpu_torch.data.pipeline import device_prefetch
@@ -742,14 +745,48 @@ def test_device_prefetch_on_the_card_records_the_pin_and_the_copy():
         dev, _ = next(stream)
     rest = next(stream)[0]
     torch.cuda.synchronize()
+    stream.close()
     trace = TRACER.stop()
     for got, want in ((dev, batches[0]), (rest, batches[1])):
         assert all(got[k].is_cuda and np.array_equal(got[k].cpu().numpy(), want[k])
                    for k in want)
     pins, copies = trace.of("train.pin"), trace.of("train.h2d")
     assert len(pins) == len(copies) == 4
-    assert {trace.spans[s.parent].name for s in pins + copies} == {"train.batch"}
+    assert all(s.parent is None for s in pins + copies)
+    assert sorted(s.id for s in pins) == sorted(s.id for s in copies) == [0, 0, 1, 1]
+    assert threading.get_ident() not in {s.thread for s in pins + copies}
     assert trace.counters["train.h2d_bytes"] == sum(b[k].nbytes for b in batches for k in b)
+
+
+@pytest.mark.cuda
+def test_device_prefetch_on_the_card_never_hands_over_a_clobbered_batch():
+    """depth + 4 batches of distinct values while a long kernel holds the
+    step's stream back before each read: every batch, read on that stream
+    with no host wait and its device tensors dropped at once, is bitwise
+    its source. A pinned slot overwritten before its copy ended, or a
+    device tensor whose memory went to a later batch before the read,
+    shows here."""
+    import numpy as np
+
+    from spatialaudiogen_tpu_torch.data.pipeline import device_prefetch
+
+    _need_card()
+    depth = 2
+    n = depth + 4
+    batches = [{"x": np.full((1 << 20,), float(i), np.float32),
+                "v": np.full((4, 1 << 16), i, np.uint8)} for i in range(n)]
+    stream = device_prefetch(iter(batches), "cuda", depth=depth)
+    got = []
+    for _ in range(n):
+        dev, _ = next(stream)
+        torch.cuda._sleep(20_000_000)       # some 10 ms on the step's stream
+        got.append({k: t.clone() for k, t in dev.items()})
+        del dev
+    stream.close()
+    torch.cuda.synchronize()
+    for want, have in zip(batches, got):
+        for k in want:
+            assert np.array_equal(have[k].cpu().numpy(), want[k]), k
 
 
 @pytest.mark.cuda

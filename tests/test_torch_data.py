@@ -5,7 +5,10 @@ against the originals: the same inputs give the same outputs, bit for bit.
 
 import dataclasses
 import importlib
+import itertools
 import os
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -157,6 +160,85 @@ def test_device_prefetch_on_cpu_keeps_values_and_order():
         assert torch.equal(dev["x"], torch.full((2, 3), float(i)))
 
 
+def _numbered(i: int) -> dict:
+    return {"id": [i], "x": np.full((2, 3), i, np.float32), "v": np.full((1, 2), i, np.uint8)}
+
+
+def test_device_prefetch_stages_more_batches_than_its_ring_in_order():
+    """Nine batches through depth 2 (a ring of three): each batch, in the
+    iterator's order, with its own values and dtypes."""
+    out = list(device_prefetch(map(_numbered, range(9)), "cpu", depth=2))
+    assert [host["id"] for _, host in out] == [[i] for i in range(9)]
+    for i, (dev, _) in enumerate(out):
+        assert dev["x"].dtype == torch.float32 and dev["v"].dtype == torch.uint8
+        assert torch.equal(dev["x"], torch.full((2, 3), float(i)))
+        assert torch.equal(dev["v"], torch.full((1, 2), i, dtype=torch.uint8))
+
+
+def test_device_prefetch_raises_the_iterators_error_at_the_consumer():
+    def batches():
+        yield _numbered(0)
+        yield _numbered(1)
+        raise OSError("pack unreadable")
+
+    stream = device_prefetch(batches(), "cpu")
+    assert [next(stream)[1]["id"] for _ in range(2)] == [[0], [1]]
+    with pytest.raises(OSError, match="pack unreadable"):
+        next(stream)
+
+
+@pytest.mark.parametrize("taken", [0, 1, 5])
+def test_closing_device_prefetch_over_an_infinite_iterator_joins_its_thread(taken):
+    before = set(threading.enumerate())
+    stream = device_prefetch(map(_numbered, itertools.count()), "cpu", depth=2)
+    next(stream)
+    for _ in range(taken):
+        next(stream)
+    started = set(threading.enumerate()) - before
+    assert len(started) == 1
+    t0 = time.perf_counter()
+    stream.close()
+    assert time.perf_counter() - t0 < 1.0
+    assert not [t for t in started if t.is_alive()]
+    assert not set(threading.enumerate()) - before
+
+
+def test_device_prefetch_counts_the_batches_staged_before_the_consumer_asked():
+    """A consumer slower than the iterator finds every batch after the first
+    staged already: `train.prefetch_ready` counts them, once per batch taken
+    (a batch it waited for counts 0), and `train.h2d_bytes` every array."""
+    from spatialaudiogen_tpu_torch.utils.profiling import TRACER
+
+    n = 6
+    TRACER.start()
+    try:
+        stream = device_prefetch(map(_numbered, range(n)), "cpu")
+        for _ in range(n):
+            time.sleep(0.1)
+            next(stream)
+        stream.close()
+    finally:
+        trace = TRACER.stop()
+    assert n - 1 <= trace.counters["train.prefetch_ready"] <= n
+    assert trace.counters["train.h2d_bytes"] == n * (2 * 3 * 4 + 2)
+
+
+def test_a_consumer_faster_than_the_iterator_counts_no_ready_batch():
+    from spatialaudiogen_tpu_torch.utils.profiling import TRACER
+
+    def slow():
+        for i in range(3):
+            time.sleep(0.1)
+            yield _numbered(i)
+
+    TRACER.start()
+    try:
+        assert len(list(device_prefetch(slow(), "cpu"))) == 3
+    finally:
+        trace = TRACER.stop()
+    assert trace.counters["train.prefetch_ready"] == 0
+
+
 def test_background_generator_surfaces_errors():
     def gen():
         yield 1
@@ -166,3 +248,11 @@ def test_background_generator_surfaces_errors():
     assert next(it) == 1
     with pytest.raises(OSError, match="disk"):
         next(it)
+
+
+def test_closing_a_background_generators_iteration_stops_its_thread():
+    before = set(threading.enumerate())
+    it = iter(BackgroundGenerator(itertools.count(), depth=2))
+    assert [next(it) for _ in range(3)] == [0, 1, 2]
+    it.close()
+    assert not set(threading.enumerate()) - before
